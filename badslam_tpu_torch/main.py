@@ -1,8 +1,11 @@
 """CLI entry point: offline TUM-dataset runs of the odometry-only slice.
 
-The flags are the reference CLI's (``badslam_tpu.main.build_parser``), so a
-command line runs unchanged on either package. This slice runs the
-odometry-only configuration:
+The flags are the reference CLI's (this module keeps its own copy of the
+parser of ``badslam_tpu/main.py``; ``tests/test_torch_config.py`` holds the
+two against each other), plus ``--device {cuda,cpu}``. A command line runs
+unchanged on either package. The run computes on the CUDA device unless
+``--device cpu`` asks otherwise, and fails where no CUDA device is visible.
+This slice runs the odometry-only configuration:
 
   python -m badslam_tpu_torch.main <dataset_dir> \\
       --max_num_ba_iterations_per_keyframe 0 --no_loop_detection \\
@@ -14,10 +17,211 @@ the ROADMAP item that will port it; none is ignored silently.
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
-from badslam_tpu.main import build_parser, config_from_args
+from badslam_tpu_torch.config import BadSlamConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+  p = argparse.ArgumentParser(
+      description="BAD SLAM (PyTorch/CUDA port, odometry-only slice)")
+  p.add_argument("dataset", help="TUM-format dataset directory "
+                 "(calibration.txt + associated.txt)")
+  p.add_argument("trajectory", nargs="?", default=None,
+                 help="optional ground-truth trajectory filename "
+                 "(for --follow_input_trajectory runs)")
+
+  # Dataset playback (main.cc:96-134).
+  p.add_argument("--depth_scaling", type=float, default=5000.0,
+                 help="depth = depth_scaling * depth_in_meters")
+  p.add_argument("--target_frame_rate", type=float, default=0.0,
+                 help="real-time mode: bound sequential-BA work by the frame"
+                      " budget at this rate (bad_slam_config.h:60-65; 0 ="
+                      " offline, BA runs to its planned budget)")
+  p.add_argument("--restrict_fps_to", type=int, default=30,
+                 help="pace playback to at most this FPS (EndFrame,"
+                      " bad_slam.cc:449-479); 0 disables pacing")
+  p.add_argument("--start_frame", type=int, default=0)
+  p.add_argument("--end_frame", type=int, default=2**31 - 1)
+  p.add_argument("--pyramid_level_for_depth", type=int, default=0)
+  p.add_argument("--pyramid_level_for_color", type=int, default=0)
+
+  # Odometry (main.cc:163-177).
+  p.add_argument("--num_scales", type=int, default=5)
+  p.add_argument("--no_motion_model", action="store_true")
+  p.add_argument("--no_pose_estimation", action="store_true",
+                 help="use the dataset trajectory as-is (mapping only)")
+
+  # Bundle adjustment (main.cc:186-245).
+  p.add_argument("--keyframe_interval", type=int, default=10)
+  p.add_argument("--max_num_ba_iterations_per_keyframe", type=int, default=10)
+  p.add_argument("--use_deactivation", action="store_true")
+  p.add_argument("--no_active_kf_window", action="store_true",
+                 help="disable gathering active keyframes into a bucketed "
+                      "window before the BA phases")
+  p.add_argument("--no_geometric_residuals", action="store_true")
+  p.add_argument("--no_photometric_residuals", action="store_true")
+  p.add_argument("--optimize_intrinsics", action="store_true")
+  p.add_argument("--intrinsics_optimization_interval", type=int, default=10)
+  p.add_argument("--final_ba_iterations", type=int, default=0)
+  p.add_argument("--no_surfel_updates", action="store_true")
+  p.add_argument("--sequential_ba", action="store_true")
+  p.add_argument("--use_pcg", action="store_true")
+  p.add_argument("--pipelined_frontend", action="store_true",
+                 help="transfer-free front-end: zero device->host transfers"
+                      " during the run (implies --sequential_ba)")
+  p.add_argument("--pipelined_concurrent_ba", action="store_true",
+                 help="with --pipelined_frontend: dispatch the per-frame"
+                      " transfer-free BA iterations from a dedicated host"
+                      " thread instead of the frame critical path (the"
+                      " BAThreadMain analog without readbacks)")
+  p.add_argument("--no_pallas_preprocess", action="store_true",
+                 help="force the plain stencil chain instead of the fused"
+                      " preprocess kernel (ops/fused_preprocess.py; CPU only)")
+  p.add_argument("--mesh_devices", type=int, default=0,
+                 help="run the back-end distributed over an N-device mesh"
+                      " (surfel store sharded along the mesh's 'surfels'"
+                      " axis). Uses the first N visible devices")
+
+  # Memory (main.cc:247-257).
+  p.add_argument("--max_surfel_count", type=int, default=25_000_000)
+  p.add_argument("--min_free_gpu_memory_mb", type=int, default=250,
+                 help="keyframes are merged under device-memory pressure"
+                      " once free device memory drops below this"
+                      " (bad_slam.cc:958-968)")
+  p.add_argument("--sparsification", type=int, default=4)
+  p.add_argument("--reconstruction_sparsification", type=int, default=1,
+                 help="sparse surfel cell size used for --export_reconstruction"
+                      " (main.cc:224-229)")
+
+  # Surfel reconstruction (main.cc:259-284).
+  p.add_argument("--surfel_merge_dist_factor", type=float, default=0.8)
+  p.add_argument("--min_observation_count_while_bootstrapping_1",
+                 type=int, default=1)
+  p.add_argument("--min_observation_count_while_bootstrapping_2",
+                 type=int, default=2)
+  p.add_argument("--min_observation_count", type=int, default=3)
+
+  # Loop closure (main.cc:286-302).
+  p.add_argument("--no_loop_detection", action="store_true")
+  p.add_argument("--sequential_loop_detection", action="store_true")
+  p.add_argument("--loop_detection_image_frequency", type=float, default=0.0)
+
+  # Depth preprocessing (main.cc:314-356).
+  p.add_argument("--max_depth", type=float, default=3.0)
+  p.add_argument("--baseline_fx", type=float, default=40.0)
+  p.add_argument("--median_filter_and_densify_iterations", type=int,
+                 default=0)
+  p.add_argument("--bilateral_filter_sigma_xy", type=float, default=1.5)
+  p.add_argument("--bilateral_filter_radius_factor", type=float, default=2.0)
+  p.add_argument("--bilateral_filter_sigma_inv_depth", type=float,
+                 default=0.005)
+
+  # Exports / state (main.cc:359-404 + io.h).
+  p.add_argument("--export_point_cloud", default=None)
+  p.add_argument("--export_reconstruction", default=None,
+                 help="run dense geometry-only BA at"
+                      " --reconstruction_sparsification and save the"
+                      " high-resolution point cloud (main.cc:796-855)")
+  p.add_argument("--export_calibration", default=None)
+  p.add_argument("--export_final_timings", default=None)
+  p.add_argument("--save_timings", default=None,
+                 help="stream per-BA-iteration stats to this file")
+  p.add_argument("--device_accurate_timings", action="store_true",
+                 help="bracket every timed phase with device barriers"
+                      " (cudaEvent-accurate per-phase numbers; profiling"
+                      " mode, see PERF.md)")
+  p.add_argument("--profile_dir", default=None,
+                 help="capture a profiler trace of the whole run into"
+                      " this directory (view with TensorBoard/Perfetto)")
+  p.add_argument("--export_poses", default=None)
+  p.add_argument("--import_calibration", default=None)
+  p.add_argument("--save_state", default=None,
+                 help="save a full SLAM state snapshot (.npz) at the end")
+  p.add_argument("--load_state", default=None,
+                 help="restore a state snapshot before processing")
+  p.add_argument("--render_preview", default=None,
+                 help="render the final surfel map from keyframe viewpoints"
+                      " into this directory (headless stand-in for the"
+                      " reference's render window, render_window.cc)")
+  p.add_argument("--render_mode", default="color",
+                 choices=["color", "normals", "descriptors", "activation"],
+                 help="surfel display coloring"
+                      " (kernel_update_visualization.cu modes)")
+  p.add_argument("--splat_half_extent_in_pixels", type=float, default=3.0,
+                 help="screen-space splat half-extent (main.cc:285-287)")
+  p.add_argument("--render_every", type=int, default=1,
+                 help="render every Nth keyframe viewpoint")
+  p.add_argument("--prewarm", action="store_true",
+                 help="run the live loop's device programs on synthetic"
+                      " frames of the dataset's shape before the first real"
+                      " frame (the autotune-database-preload analog,"
+                      " main.cc:437-447)")
+  p.add_argument("--prewarm_keyframes", type=int, default=0,
+                 help="with --prewarm: also run the BA programs for"
+                      " every active-window bucket / store capacity a map of"
+                      " this many keyframes passes through")
+  # The one flag the reference CLI lacks (it chose its backend through the
+  # JAX_PLATFORMS environment variable).
+  p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                 help="where the run computes; cuda fails when no CUDA"
+                      " device is visible, it never falls back to the CPU")
+  p.add_argument("--quiet", action="store_true")
+  p.add_argument("--log_level", default=None,
+                 choices=["debug", "info", "warning", "error", "fatal"],
+                 help="log verbosity (also BADSLAM_LOG_LEVEL env)")
+  return p
+
+
+def config_from_args(args) -> BadSlamConfig:
+  return BadSlamConfig(
+      raw_to_float_depth=1.0 / args.depth_scaling,
+      start_frame=args.start_frame,
+      end_frame=args.end_frame,
+      target_frame_rate=args.target_frame_rate,
+      fps_restriction=args.restrict_fps_to,
+      pyramid_level_for_depth=args.pyramid_level_for_depth,
+      pyramid_level_for_color=args.pyramid_level_for_color,
+      max_depth=args.max_depth,
+      baseline_fx=args.baseline_fx,
+      median_filter_and_densify_iterations=(
+          args.median_filter_and_densify_iterations),
+      bilateral_filter_sigma_xy=args.bilateral_filter_sigma_xy,
+      bilateral_filter_radius_factor=args.bilateral_filter_radius_factor,
+      bilateral_filter_sigma_inv_depth=args.bilateral_filter_sigma_inv_depth,
+      max_surfel_count=args.max_surfel_count,
+      min_free_gpu_memory_mb=args.min_free_gpu_memory_mb,
+      sparse_surfel_cell_size=args.sparsification,
+      surfel_merge_dist_factor=args.surfel_merge_dist_factor,
+      min_observation_count_while_bootstrapping_1=(
+          args.min_observation_count_while_bootstrapping_1),
+      min_observation_count_while_bootstrapping_2=(
+          args.min_observation_count_while_bootstrapping_2),
+      min_observation_count=args.min_observation_count,
+      num_scales=args.num_scales,
+      use_motion_model=not args.no_motion_model,
+      estimate_poses=not args.no_pose_estimation,
+      keyframe_interval=args.keyframe_interval,
+      max_num_ba_iterations_per_keyframe=(
+          args.max_num_ba_iterations_per_keyframe),
+      disable_deactivation=not args.use_deactivation,
+      use_active_kf_window=not args.no_active_kf_window,
+      use_geometric_residuals=not args.no_geometric_residuals,
+      use_photometric_residuals=not args.no_photometric_residuals,
+      optimize_intrinsics=args.optimize_intrinsics,
+      intrinsics_optimization_interval=args.intrinsics_optimization_interval,
+      do_surfel_updates=not args.no_surfel_updates,
+      parallel_ba=not args.sequential_ba,
+      use_pcg=args.use_pcg,
+      pipelined_frontend=args.pipelined_frontend,
+      pipelined_concurrent_ba=args.pipelined_concurrent_ba,
+      use_pallas_preprocess=not args.no_pallas_preprocess,
+      enable_loop_detection=not args.no_loop_detection,
+      parallel_loop_detection=not args.sequential_loop_detection,
+      loop_detection_image_frequency=args.loop_detection_image_frequency,
+  )
 
 
 def _refuse_unported_flags(args) -> None:
@@ -51,9 +255,9 @@ def _refuse_unported_flags(args) -> None:
 
 
 def run(args) -> int:
-  from badslam_tpu.utils import logging as log
   from badslam_tpu_torch.io import dataset as dataset_io
-  from badslam_tpu_torch.slam.system import BadSlam
+  from badslam_tpu_torch.slam.system import BadSlam, NoCudaDeviceError
+  from badslam_tpu_torch.utils import logging as log
   from badslam_tpu_torch.utils.timing import Timing
 
   _refuse_unported_flags(args)
@@ -64,8 +268,9 @@ def run(args) -> int:
       args.dataset, args.trajectory,
       raw_to_float_depth=config.raw_to_float_depth)
   try:
-    slam = BadSlam(config, video)
-  except NotImplementedError as e:
+    slam = BadSlam(config, video, device=args.device)
+  except (NotImplementedError, NoCudaDeviceError) as e:
+    # Outside the slice, or --device cuda without a CUDA device.
     raise SystemExit(str(e)) from e
   if not args.quiet:
     log.info(f"Loaded {video.frame_count()} frames from {args.dataset} "

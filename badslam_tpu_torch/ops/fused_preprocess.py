@@ -76,7 +76,9 @@ def fused_depth_preprocess(
   """(filtered (H, W), normals (H, W, 2), radius_sq (H, W)) of raw metric
   depth (H, W) f32, 0 = invalid. On a CUDA tensor: one launch of the
   hand-written kernel on the current stream, counted in
-  ``fused_depth_preprocess.launches``."""
+  ``fused_depth_preprocess.launches``. Every bilateral radius goes to the
+  kernel: radius 3 to its unrolled instantiation, any other to the generic
+  one."""
   if raw_depth.device.type == "cpu":
     return fused_depth_preprocess_reference(
         raw_depth, calib, sigma_xy=sigma_xy, sigma_inv_depth=sigma_inv_depth,
@@ -94,10 +96,10 @@ def fused_depth_preprocess(
   _check(calib.cfactor, "cfactor", cfactor_shape(h, w, calib.cell_size), dev)
   radius = int(radius_factor * sigma_xy + 0.5)
 
+  launch = _launcher()
   filtered = torch.empty((h, w), dtype=torch.float32, device=dev)
   normals = torch.empty((h, w, 2), dtype=torch.float32, device=dev)
   radius_sq = torch.empty((h, w), dtype=torch.float32, device=dev)
-  launch = _launcher()
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = launch(

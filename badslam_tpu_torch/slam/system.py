@@ -30,8 +30,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from badslam_tpu.config import BadSlamConfig
-from badslam_tpu.utils import logging as log
+from badslam_tpu_torch.config import BadSlamConfig
 from badslam_tpu_torch.geometry import se3_np
 from badslam_tpu_torch.io.dataset import RGBDVideo
 from badslam_tpu_torch.models import odometry as odometry_mod
@@ -39,6 +38,7 @@ from badslam_tpu_torch.models.calibration import DepthCalibration
 from badslam_tpu_torch.ops import depth_model, image_proc
 from badslam_tpu_torch.ops.fused_preprocess import fused_depth_preprocess
 from badslam_tpu_torch.ops.pyramid import build_pyramid
+from badslam_tpu_torch.utils import logging as log
 from badslam_tpu_torch.utils.timing import Timing
 
 
@@ -58,6 +58,10 @@ class Keyframe(NamedTuple):
   frame_index: int
   global_T_frame: np.ndarray
   processed: ProcessedFrame
+
+
+class NoCudaDeviceError(RuntimeError):
+  """The run was to compute on the CUDA device and none is visible."""
 
 
 def unported(what: str, item: str) -> str:
@@ -100,13 +104,17 @@ def check_supported(config: BadSlamConfig, device: torch.device) -> None:
 
 class BadSlam:
   """The system orchestrator (class BadSlam, bad_slam.h), sequential
-  odometry-only path."""
+  odometry-only path. It computes on ``device``: the CUDA device when none
+  is named, the CPU only when the caller asks for it."""
 
   def __init__(self, config: BadSlamConfig, rgbd_video: RGBDVideo,
                device=None):
-    if device is None:
-      device = "cuda" if torch.cuda.is_available() else "cpu"
-    self.device = torch.device(device)
+    self.device = torch.device("cuda" if device is None else device)
+    if self.device.type == "cuda" and not torch.cuda.is_available():
+      raise NoCudaDeviceError(
+          "no CUDA device is visible (torch.cuda.is_available() is False); "
+          "BadSlam runs on the GPU unless the caller passes device=\"cpu\" "
+          "(--device cpu)")
     check_supported(config, self.device)
     self.config = config
     self.rgbd_video = rgbd_video

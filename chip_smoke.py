@@ -7,15 +7,25 @@ Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernel (csrc/fused_preprocess.cu) with nvcc;
   3. hold the kernel against its plain PyTorch version on the card at
-     640x480 and 641x479 (2% holes, 1% beyond max_depth, random cfactor,
-     a = 0.01), tolerances depth 1e-5, normals 1e-4, radius 1e-6 (absolute),
-     and time both (median of 50 runs, CUDA events);
+     640x480 and 641x479 (bilateral radius 3, the unrolled instantiation)
+     and at 320x240 with sigma_xy = 1.0 (radius 2, the generic
+     instantiation); inputs with 2% holes, 1% beyond max_depth, random
+     cfactor, a = 0.01; tolerances depth 1e-5, normals 1e-4, radius 1e-6
+     (absolute). At 640x480 time both, in turns (plain, kernel, kernel,
+     plain; each turn the median of 50, CUDA events; the time reported is
+     the mean of the two turns): the kernel's device time per
+     launch (launches replayed back to back from a CUDA graph, so the host
+     is out of the number) and the time of one call of its wrapper from
+     the host (outputs allocated, one launch); and work out the kernel's
+     bound from these inputs: bytes over the memory rate against float32
+     operations over the float32 peak, the larger of the two;
   4. write a 640x480 TUM dataset of the heightmap world along the
      constant-twist trajectory, 30 frames;
   5. run the odometry-only CLI (``badslam_tpu_torch.main``) on it with the
      kernel's launch count reset just before, and check: rc 0, one launch
      per frame, finite poses, ATE RMSE <= 2.77 mm;
-  6. print warm frames/s, per-phase ms and peak device memory.
+  6. print warm frames/s, per-phase ms and peak device memory;
+  7. check that no module of JAX or of the JAX package was imported.
 
 The next-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA device and no network.
@@ -38,12 +48,55 @@ import numpy as np
 # interpolation bias * frames / sqrt(3) with the bias halving per
 # resolution doubling, gives the 640x480 value, which has no record yet.
 ATE_GATE_M = 2.77e-3
-ATE_FORMULA_640_M = 2.0 * 8e-5 * (160.0 / 640.0) * 30 / np.sqrt(3.0)
+ATE_FORMULA_640_M = float(2.0 * 8e-5 * (160.0 / 640.0) * 30 / np.sqrt(3.0))
 TOLERANCES = {"filtered": 1e-5, "normals": 1e-4, "radius_sq": 1e-6}
 PREPROCESS = dict(sigma_xy=1.5, sigma_inv_depth=0.005, radius_factor=2.0,
                   max_depth=5.0)
+# The generic-radius case: int(2.0 * 1.0 + 0.5) = 2.
+PREPROCESS_RADIUS_2 = dict(PREPROCESS, sigma_xy=1.0)
 FRAMES = 30
 
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# device memory rate, float32 rate outside the tensor cores (an FMA counts
+# as two operations), and the special-function units' 16 results per clock
+# on each of 132 SMs at the 1.98 GHz that the float32 peak assumes.
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_OPS_PER_S = 67e12
+H100_SFU_PER_S = 132 * 16 * 1.98e9
+# float32 operations the function needs, counted from the plain version
+# (ops/depth_proc.py): each float add, subtract and multiply whose result
+# is used counts one; compares, selects, min/max and index arithmetic count
+# nothing. expf, IEEE division, reciprocal and square root count as the
+# instruction sequences nvcc emits for them on sm_90a without
+# --use_fast_math, read from the kernel's SASS (cuobjdump -sass of the
+# built library), an FFMA as two: expf four FFMA, an FADD, a MUFU.EX2 and
+# an FMUL; a division a MUFU.RCP and five FFMA; a reciprocal a MUFU.RCP,
+# two FFMA and an FADD; a square root a MUFU.RSQ, two FMUL and two FFMA.
+OPS_EXP, OPS_DIV, OPS_RCP, OPS_SQRT = 11, 11, 6, 7
+# One bilateral tap with a valid center and a valid sample: the difference
+# of inverse depths (1), its square (1), times 1/(2 sigma^2) (1), subtracted
+# from the spatial term (1), expf, the weight sum (1), weight x sample (1),
+# the value sum (1).
+OPS_PER_TAP = 7 + OPS_EXP
+# Once per valid pixel: its inverse depth, which every tap on it reads.
+OPS_PER_VALID_PIXEL = OPS_RCP
+# Once per pixel that passes the cutoff (any other comes out zero):
+#   the filter's quotient                                        division
+#   calibration 1/(1/d + c exp(-a/d)): -a x, c x, +    3, 2 reciprocals, expf
+#   five unprojections d(fx' px + cx'), d(fy' py + cy')                5 x 6
+#   two pick_difference: two squared distances (3 -, 3 x, 2 +),
+#     their ratio, the one difference that is selected (3 -)
+#                                                      2 x (19 + division)
+#   cross product (6 x, 3 -)                                               9
+#   its length (3 x, 2 +)                                    5, square root
+#   sign / length, times x and y                                2, division
+#   radii: the center's unprojection and, for each of 4 neighbours, an
+#     unprojection and a squared distance                    6 + 4 x (6 + 8)
+OPS_PER_CENTER_PIXEL = (3 + 30 + 38 + 9 + 5 + 2 + 62
+                        + 4 * OPS_DIV + 2 * OPS_RCP + OPS_EXP + OPS_SQRT)
+# Special-function results: one per tap and per valid pixel, and per center
+# pixel 4 divisions, 2 reciprocals, one expf and one square root.
+SFU_PER_CENTER_PIXEL = 8
 
 def fail(msg: str) -> None:
   print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -77,6 +130,55 @@ def cuda_median_ms(fn, runs: int = 50) -> float:
   return statistics.median(times)
 
 
+def device_ms_per_launch(fn, launches: int = 20, runs: int = 50) -> float:
+  """Device time of one call of ``fn``: ``launches`` calls captured in a
+  CUDA graph and replayed back to back between two events (median of
+  ``runs`` replays), so host time between launches is not in it."""
+  import torch
+  fn()
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(launches):
+      fn()
+  return cuda_median_ms(graph.replay, runs) / launches
+
+
+def preprocess_bound(raw, *, sigma_xy, radius_factor, max_depth, **_) -> dict:
+  """The least time an H100 could take for fused_depth_preprocess on
+  ``raw``: the larger of its bytes (the frame read once, four planes
+  written once) over the memory rate and its float32 operations over the
+  float32 peak. The work is counted from the data: a tap where the center
+  passes the cutoff and the sample is valid, a reciprocal per valid pixel,
+  the rest of the chain per pixel that passes the cutoff."""
+  import torch
+  import torch.nn.functional as F
+  h, w = raw.shape
+  radius = int(radius_factor * sigma_xy + 0.5)
+  valid = raw > 0.0
+  center = valid & (raw <= max_depth)
+  padded = F.pad(valid[None, None], (radius,) * 4)[0, 0]
+  taps = 0
+  for dy in range(-radius, radius + 1):
+    for dx in range(-radius, radius + 1):
+      if dx * dx + dy * dy <= radius * radius:
+        sample = padded[radius + dy:radius + dy + h,
+                        radius + dx:radius + dx + w]
+        taps += int((center & sample).sum())
+  n_valid, n_center = int(valid.sum()), int(center.sum())
+  nbytes = 5 * 4 * h * w
+  ops = (taps * OPS_PER_TAP + n_valid * OPS_PER_VALID_PIXEL
+         + n_center * OPS_PER_CENTER_PIXEL)
+  sfu = taps + n_valid + n_center * SFU_PER_CENTER_PIXEL
+  bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+  ops_ms = ops / H100_FP32_OPS_PER_S * 1e3
+  return {"bytes": nbytes, "ops": ops, "taps": taps, "valid": n_valid,
+          "center": n_center, "bytes_ms": bytes_ms,
+          "ops_ms": ops_ms, "sfu_ms": sfu / H100_SFU_PER_S * 1e3,
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
 def kernel_inputs(width: int, height: int, seed: int, device):
   from badslam_tpu_torch.models.calibration import DepthCalibration
   from badslam_tpu_torch.ops.depth_model import cfactor_shape
@@ -96,40 +198,66 @@ def kernel_inputs(width: int, height: int, seed: int, device):
 
 
 def check_kernel(device) -> dict:
-  """Phase 3: kernel vs plain version at the main path's shapes."""
+  """Phase 3: kernel vs plain version at the main path's shapes, and at a
+  radius that the generic instantiation serves."""
   import torch
   from badslam_tpu_torch.ops import fused_preprocess as fp
   worst = 0.0
   timing = None
-  for width, height in ((640, 480), (641, 479)):
+  for width, height, kwargs in ((640, 480, PREPROCESS),
+                                (641, 479, PREPROCESS),
+                                (320, 240, PREPROCESS_RADIUS_2)):
+    radius = int(kwargs["radius_factor"] * kwargs["sigma_xy"] + 0.5)
+    case = f"{width}x{height} radius {radius}"
     raw, calib = kernel_inputs(width, height, seed=width, device=device)
-    got = fp.fused_depth_preprocess(raw, calib, **PREPROCESS)
-    want = fp.fused_depth_preprocess_reference(raw, calib, **PREPROCESS)
+    got = fp.fused_depth_preprocess(raw, calib, **kwargs)
+    want = fp.fused_depth_preprocess_reference(raw, calib, **kwargs)
     torch.cuda.synchronize()
     if int((want[0] > 0).sum()) < width * height // 2:
-      fail(f"{width}x{height}: too few valid pixels to compare")
+      fail(f"{case}: too few valid pixels to compare")
     for name, g, w in zip(TOLERANCES, got, want):
       if g.shape != w.shape or not bool(torch.isfinite(g).all()):
-        fail(f"{width}x{height} {name}: bad shape or non-finite values")
+        fail(f"{case} {name}: bad shape or non-finite values")
       err = float((g - w).abs().max())
       mismatched = int(((g - w).abs() > TOLERANCES[name]).sum())
-      print(f"kernel vs plain {width}x{height} {name}: max_abs_err {err!r}"
+      print(f"kernel vs plain {case} {name}: max_abs_err {err!r}"
             f" (tolerance {TOLERANCES[name]}, {mismatched} over)")
       if err > TOLERANCES[name]:
-        fail(f"{width}x{height} {name}: max_abs_err {err} > "
-             f"{TOLERANCES[name]}")
+        fail(f"{case} {name}: max_abs_err {err} > {TOLERANCES[name]}")
       worst = max(worst, err)
     if timing is None:
-      # Plain, kernel, kernel, plain: the medians of the two turns each.
-      plain = [cuda_median_ms(lambda: fp.fused_depth_preprocess_reference(
-          raw, calib, **PREPROCESS))]
-      kernel = [cuda_median_ms(lambda: fp.fused_depth_preprocess(
-          raw, calib, **PREPROCESS)) for _ in range(2)]
-      plain.append(cuda_median_ms(lambda: fp.fused_depth_preprocess_reference(
-          raw, calib, **PREPROCESS)))
-      timing = {"ms": min(kernel), "plain_ms": min(plain)}
-      print(f"640x480 preprocess, median of 50: kernel {kernel} ms, "
-            f"plain {plain} ms")
+      def run_plain():
+        return fp.fused_depth_preprocess_reference(raw, calib, **PREPROCESS)
+
+      def run_kernel():
+        return fp.fused_depth_preprocess(raw, calib, **PREPROCESS)
+
+      # Plain, kernel, kernel, plain; each reported time is the mean of
+      # its two turns' medians.
+      plain = [cuda_median_ms(run_plain)]
+      kernel, call = [], []
+      for _ in range(2):
+        kernel.append(device_ms_per_launch(run_kernel))
+        call.append(cuda_median_ms(run_kernel))
+      plain.append(cuda_median_ms(run_plain))
+      bound = preprocess_bound(raw, **PREPROCESS)
+      timing = {"ms": statistics.mean(kernel),
+                "call_ms": statistics.mean(call),
+                "plain_ms": statistics.mean(plain),
+                "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"]}
+      print(f"640x480 preprocess, each turn's median of 50: kernel on the "
+            f"device "
+            f"{kernel} ms per launch; one wrapper call from the host {call} "
+            f"ms; plain {plain} ms")
+      print(f"640x480 preprocess bound: {bound['bytes']} bytes -> "
+            f"{bound['bytes_ms'] * 1e3!r} us; {bound['ops']} float32 "
+            f"operations ({bound['taps']} taps, {bound['valid']} valid and "
+            f"{bound['center']} center pixels) -> {bound['ops_ms'] * 1e3!r}"
+            f" us; special-function results -> {bound['sfu_ms'] * 1e3!r} us;"
+            f" bound {bound['bound_ms'] * 1e3!r} us by {bound['bound_by']};"
+            f" the kernel reaches "
+            f"{bound['bound_ms'] / timing['ms'] * 100!r}% of it")
   return {"max_abs_err": worst, **timing}
 
 
@@ -227,21 +355,27 @@ def main() -> int:
   print(f"built fused_preprocess in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {seconds:.1f} s)")
   for line in ptxas.splitlines():
-    if "registers" in line or "spill" in line:
+    if "registers" in line or "spill" in line or "smem" in line:
       print(f"  ptxas: {line.strip()}")
 
   kernel = check_kernel(device)
   with tempfile.TemporaryDirectory() as workdir:
     path = run_main_path(workdir)
-  if "jax" in sys.modules:
-    fail("jax was imported")
+  foreign = sorted(m for m in sys.modules
+                   if m.split(".")[0] in ("jax", "jaxlib", "badslam_tpu"))
+  if foreign:
+    fail(f"modules of JAX or of the JAX package were imported: {foreign}")
 
   summary = {"kernels": [{
       "name": "fused_depth_preprocess", "route": "cuda",
       "source": "badslam_tpu_torch/csrc/fused_preprocess.cu",
       "replaces": "badslam_tpu/ops/pallas_preprocess.py:76",
-      "launches": path["launches"], "max_abs_err": kernel["max_abs_err"],
-      "ms": kernel["ms"], "plain_ms": kernel["plain_ms"]}]}
+      "launches": path["launches"],
+      "launches_per_frame": path["launches"] / FRAMES,
+      "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
+      "call_ms": kernel["call_ms"], "plain_ms": kernel["plain_ms"],
+      "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
+      "library_ms": None}]}
   print(json.dumps(summary))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": name,

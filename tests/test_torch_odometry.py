@@ -181,7 +181,7 @@ def test_calibration_carries_over_from_the_reference_state(pair):
     frames.append(frame)
     raws.append((raw, frame._rgb))
   video = RGBDVideo(frames, cam, cam, raw_to_float)
-  from badslam_tpu.config import BadSlamConfig
+  from badslam_tpu_torch.config import BadSlamConfig
   cfg = BadSlamConfig(max_num_ba_iterations_per_keyframe=0,
                       enable_loop_detection=False, parallel_ba=False,
                       num_scales=4, max_depth=5.0,

@@ -32,6 +32,9 @@ torch.set_num_threads(2)
 TOL = {"filtered": 1e-5, "normals": 1e-4, "radius_sq": 1e-6}
 KW = dict(sigma_xy=1.5, sigma_inv_depth=0.005, radius_factor=2.0,
           max_depth=5.0)
+# sigma_xy = 1.0 gives bilateral radius int(2.0 * 1.0 + 0.5) = 2, which the
+# CUDA kernel serves with its generic (not unrolled) instantiation.
+KW_RADIUS_2 = dict(KW, sigma_xy=1.0)
 CELL = 4
 NEEDS_CUDA = "needs CUDA: the kernel is checked on the H100 by chip_smoke.py"
 
@@ -54,15 +57,12 @@ def _inputs(width, height, cfactor_kind):
   return cam, d, intr, np.float32(0.01), cfactor
 
 
-@pytest.mark.parametrize("cfactor_kind", ["const", "random"])
-@pytest.mark.parametrize("size", [(256, 128), (160, 120)])
-def test_plain_chain_matches_jax_kernel_and_xla_chain(size, cfactor_kind):
-  width, height = size
+def _assert_plain_chain_matches_jax(width, height, cfactor_kind, kw):
   cam, d, intr, a, cfactor = _inputs(width, height, cfactor_kind)
   jax_kernel = pallas_preprocess.fused_depth_preprocess(
       jnp.asarray(d), jnp.asarray(intr), jnp.asarray(a), jnp.asarray(cfactor),
-      width=width, height=height, cell_size=CELL, interpret=True, **KW)
-  filt = jax_depth_proc.bilateral_filter_and_cutoff(jnp.asarray(d), **KW)
+      width=width, height=height, cell_size=CELL, interpret=True, **kw)
+  filt = jax_depth_proc.bilateral_filter_and_cutoff(jnp.asarray(d), **kw)
   fb, nn = jax_depth_proc.compute_normals(filt, cam, jnp.asarray(a),
                                           jnp.asarray(cfactor), CELL)
   rr, fa = jax_depth_proc.compute_radii_and_remove_isolated(fb, cam)
@@ -71,7 +71,7 @@ def test_plain_chain_matches_jax_kernel_and_xla_chain(size, cfactor_kind):
   calib = DepthCalibration.from_numpy(intr, a, cfactor, 40.0, CELL,
                                       (width, height))
   port = fused_preprocess.fused_depth_preprocess(torch.from_numpy(d), calib,
-                                                 **KW)
+                                                 **kw)
   assert port[0].shape == (height, width)
   assert port[1].shape == (height, width, 2)
   assert (port[0] > 0).sum() > width * height // 10
@@ -79,6 +79,18 @@ def test_plain_chain_matches_jax_kernel_and_xla_chain(size, cfactor_kind):
     for name, got, want in zip(TOL, port, ref):
       np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                  atol=TOL[name], rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("cfactor_kind", ["const", "random"])
+@pytest.mark.parametrize("size", [(256, 128), (160, 120)])
+def test_plain_chain_matches_jax_kernel_and_xla_chain(size, cfactor_kind):
+  _assert_plain_chain_matches_jax(*size, cfactor_kind, KW)
+
+
+@pytest.mark.parametrize("cfactor_kind", ["const", "random"])
+def test_plain_chain_matches_jax_at_bilateral_radius_2(cfactor_kind):
+  assert int(KW_RADIUS_2["radius_factor"] * KW_RADIUS_2["sigma_xy"] + 0.5) == 2
+  _assert_plain_chain_matches_jax(160, 120, cfactor_kind, KW_RADIUS_2)
 
 
 def test_wrapper_runs_plain_chain_on_cpu_and_refuses_other_devices():
@@ -98,8 +110,10 @@ def test_wrapper_runs_plain_chain_on_cpu_and_refuses_other_devices():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [(640, 480), (641, 479)])
-def test_cuda_kernel_matches_plain_chain(size):
+@pytest.mark.parametrize("size,kw", [((640, 480), KW), ((641, 479), KW),
+                                     ((320, 240), KW_RADIUS_2)],
+                         ids=["640x480", "641x479", "320x240-radius2"])
+def test_cuda_kernel_matches_plain_chain(size, kw):
   if not torch.cuda.is_available():
     pytest.skip(NEEDS_CUDA)
   width, height = size
@@ -114,9 +128,9 @@ def test_cuda_kernel_matches_plain_chain(size):
       (width, height), "cuda")
   raw = torch.from_numpy(depth).cuda()
   before = fused_preprocess.fused_depth_preprocess.launches
-  got = fused_preprocess.fused_depth_preprocess(raw, calib, **KW)
+  got = fused_preprocess.fused_depth_preprocess(raw, calib, **kw)
   assert fused_preprocess.fused_depth_preprocess.launches == before + 1
-  want = fused_preprocess.fused_depth_preprocess_reference(raw, calib, **KW)
+  want = fused_preprocess.fused_depth_preprocess_reference(raw, calib, **kw)
   torch.cuda.synchronize()
   for name, g, w in zip(TOL, got, want):
     np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),

@@ -45,7 +45,7 @@ def dataset(tmp_path_factory):
 def test_cli_trajectory_matches_jax(dataset, tmp_path):
   port_poses = str(tmp_path / "port.txt")
   jax_poses = str(tmp_path / "jax.txt")
-  assert port_main.main([dataset, *ODOMETRY_ONLY,
+  assert port_main.main([dataset, *ODOMETRY_ONLY, "--device", "cpu",
                          "--export_poses", port_poses]) == 0
   assert jax_main.main([dataset, *ODOMETRY_ONLY,
                         "--export_poses", jax_poses]) == 0
@@ -79,7 +79,7 @@ def test_unported_flags_are_refused(dataset, flags):
       "--max_num_ba_iterations_per_keyframe", "0", "--no_loop_detection",
       "--sequential_ba"]
   with pytest.raises(SystemExit, match="ROADMAP"):
-    port_main.main([dataset, *base, *flags])
+    port_main.main([dataset, "--device", "cpu", *base, *flags])
 
 
 def test_dataset_loader_matches_jax(dataset, tmp_path):
@@ -114,7 +114,8 @@ def test_dataset_loader_matches_jax(dataset, tmp_path):
 def test_port_imports_no_jax():
   code = ("import sys, badslam_tpu_torch.main, badslam_tpu_torch.slam.system,"
           " badslam_tpu_torch.ops.fused_preprocess, badslam_tpu_torch.kernels"
-          ".build; assert 'jax' not in sys.modules, 'jax imported'")
+          ".build; bad = [m for m in sys.modules if m.split('.')[0] in "
+          "('jax', 'badslam_tpu')]; assert not bad, bad")
   env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
   subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                  check=True, timeout=120)

@@ -2,7 +2,7 @@
 """Profile the PyTorch port's odometry-only slice frame by frame.
 
   python3 tools/profile_slice.py [--frames 14] [--width 640 --height 480]
-                                 [--out profile.txt]
+                                 [--out profile.txt] [--device cpu]
 
 Writes a TUM dataset of the heightmap world along the constant-twist
 trajectory to a temporary directory and drives ``BadSlam`` on it with the
@@ -25,8 +25,9 @@ shares:
   - mixed: 1 - busy per frame / timed frame wall (busy from the profiled
     stretch, wall from the timed one; the two stretches run different
     frames of the same configuration).
-``--out`` receives the profiler's operator and kernel tables. On a machine
-without CUDA it runs on the CPU and reports no device numbers.
+``--out`` receives the profiler's operator and kernel tables. It runs on the
+CUDA device and fails without one; ``--device cpu`` runs the plain paths on
+the CPU (small sizes) and reports no device numbers.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ sys.path.insert(0, os.path.dirname(HERE))
 
 import torch  # noqa: E402
 
-from badslam_tpu.main import build_parser, config_from_args  # noqa: E402
 from badslam_tpu_torch.io import dataset as dataset_io  # noqa: E402
+from badslam_tpu_torch.main import build_parser, config_from_args  # noqa: E402
 from badslam_tpu_torch.models import odometry  # noqa: E402
 from badslam_tpu_torch.slam.system import BadSlam  # noqa: E402
 from badslam_tpu_torch.utils import synthetic  # noqa: E402
@@ -89,10 +90,11 @@ def main(argv=None) -> int:
   p.add_argument("--width", type=int, default=640)
   p.add_argument("--height", type=int, default=480)
   p.add_argument("--out", default=None)
+  p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
   args = p.parse_args(argv)
   if args.frames < WARMUP + args.timed + 1:
     p.error(f"--frames must be at least {WARMUP + args.timed + 1}")
-  cuda = torch.cuda.is_available()
+  cuda = args.device == "cuda"
 
   with tempfile.TemporaryDirectory() as workdir:
     data = synthetic.write_tum_dataset(
@@ -103,7 +105,7 @@ def main(argv=None) -> int:
         build_parser().parse_args([data, *ODOMETRY_ONLY]))
     video = dataset_io.load_tum_dataset(
         data, raw_to_float_depth=config.raw_to_float_depth)
-    slam = BadSlam(config, video)
+    slam = BadSlam(config, video, device=args.device)
     print(f"device {slam.device}"
           + (f" ({torch.cuda.get_device_name(0)})" if cuda else "")
           + f"; {args.width}x{args.height}, {args.frames} frames")
