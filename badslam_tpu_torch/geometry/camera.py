@@ -11,7 +11,7 @@ device-resident intrinsics never reads them back to the host.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -84,3 +84,37 @@ class PinholeCamera(NamedTuple):
     INT_MIN, which would pass an integer bound test)."""
     x, y = pxy[..., 0], pxy[..., 1]
     return (x >= 0) & (y >= 0) & (x < self.width) & (y < self.height)
+
+
+class DepthToColorTransform(NamedTuple):
+  """Affine pixel transform depth -> color (surfel_projection.cuh:184-207),
+  for differing depth and color intrinsics; corner convention on both
+  sides."""
+
+  fx: "float | torch.Tensor"
+  fy: "float | torch.Tensor"
+  cx: "float | torch.Tensor"
+  cy: "float | torch.Tensor"
+  width: int
+  height: int
+
+  @staticmethod
+  def between(depth_cam: PinholeCamera,
+              color_cam: PinholeCamera) -> "DepthToColorTransform":
+    # color_px = color_fx * ((depth_px - depth_cx) / depth_fx) + color_cx
+    fx = color_cam.fx / depth_cam.fx
+    fy = color_cam.fy / depth_cam.fy
+    return DepthToColorTransform(
+        fx=fx, fy=fy,
+        cx=color_cam.cx - fx * depth_cam.cx,
+        cy=color_cam.cy - fy * depth_cam.cy,
+        width=color_cam.width, height=color_cam.height)
+
+  def apply(self, pxy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (color_pxy, in_bounds). As in ``PinholeCamera.in_image``
+    the bound test compares floats, which keeps inf and NaN out."""
+    out = torch.stack([self.fx * pxy[..., 0] + self.cx,
+                       self.fy * pxy[..., 1] + self.cy], dim=-1)
+    x, y = out[..., 0], out[..., 1]
+    ok = (x >= 0) & (y >= 0) & (x < self.width) & (y < self.height)
+    return out, ok

@@ -134,6 +134,17 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
   return make(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
 
 
+def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+  """Apply one (4, 4) transform to points (N, 3) or (3,)."""
+  return points @ T[0:3, 0:3].T + T[0:3, 3]
+
+
+def rotate(T: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
+  """Apply only the rotation of one (4, 4) transform to vectors (N, 3) or
+  (3,)."""
+  return vectors @ T[0:3, 0:3].T
+
+
 def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
   """(...,3,3) -> (...,4) quaternion (x, y, z, w), TUM export order."""
   m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]

@@ -1,1 +1,1 @@
-"""Dataset input and trajectory output."""
+"""Dataset input, trajectory and point-cloud output."""

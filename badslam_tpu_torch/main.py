@@ -1,15 +1,18 @@
-"""CLI entry point: offline TUM-dataset runs of the odometry-only slice.
+"""CLI entry point: offline TUM-dataset runs, sequential BA.
 
 The flags are the reference CLI's (this module keeps its own copy of the
 parser of ``badslam_tpu/main.py``; ``tests/test_torch_config.py`` holds the
 two against each other), plus ``--device {cuda,cpu}``. A command line runs
 unchanged on either package. The run computes on the CUDA device unless
 ``--device cpu`` asks otherwise, and fails where no CUDA device is visible.
-This slice runs the odometry-only configuration:
+The port runs the sequential path without loop detection:
 
-  python -m badslam_tpu_torch.main <dataset_dir> \\
-      --max_num_ba_iterations_per_keyframe 0 --no_loop_detection \\
-      --sequential_ba [--export_poses out.txt] ...
+  python -m badslam_tpu_torch.main <dataset_dir> --sequential_ba \\
+      --no_loop_detection [--export_poses out.txt] \\
+      [--export_point_cloud map.ply] ...
+
+``--no_active_kf_window`` is accepted and changes nothing: the port's BA
+phases loop over the keyframes that take part, so there is no window.
 
 Flags whose work is not ported yet are refused (SystemExit), each naming
 the ROADMAP item that will port it; none is ignored silently.
@@ -26,7 +29,7 @@ from badslam_tpu_torch.config import BadSlamConfig
 
 def build_parser() -> argparse.ArgumentParser:
   p = argparse.ArgumentParser(
-      description="BAD SLAM (PyTorch/CUDA port, odometry-only slice)")
+      description="BAD SLAM (PyTorch/CUDA port, sequential BA)")
   p.add_argument("dataset", help="TUM-format dataset directory "
                  "(calibration.txt + associated.txt)")
   p.add_argument("trajectory", nargs="?", default=None,
@@ -227,19 +230,15 @@ def config_from_args(args) -> BadSlamConfig:
 def _refuse_unported_flags(args) -> None:
   """CLI-only flags outside the slice (the configuration's own fields are
   checked by BadSlam)."""
-  from badslam_tpu_torch.slam.system import unported
-  item4 = 'item 4 "DirectBA, alternating scheme"'
+  from badslam_tpu_torch.slam.direct_ba import unported
   item5 = 'item 5 "Sequential system and CLI"'
   refusals = [
       (args.mesh_devices > 1, "--mesh_devices", 'item 11 "Distribution"'),
-      (args.final_ba_iterations > 0, "--final_ba_iterations", item4),
-      (args.export_point_cloud, "--export_point_cloud", item4),
       (args.export_reconstruction, "--export_reconstruction", item5),
       (args.save_state or args.load_state, "--save_state/--load_state",
        item5),
       (args.export_calibration or args.import_calibration,
        "--export_calibration/--import_calibration", item5),
-      (args.save_timings, "--save_timings (BA iteration statistics)", item4),
       (args.render_preview, "--render_preview",
        'item 9 "The rest of the library"'),
       (args.profile_dir, "--profile_dir",
@@ -256,6 +255,7 @@ def _refuse_unported_flags(args) -> None:
 
 def run(args) -> int:
   from badslam_tpu_torch.io import dataset as dataset_io
+  from badslam_tpu_torch.io import ply
   from badslam_tpu_torch.slam.system import BadSlam, NoCudaDeviceError
   from badslam_tpu_torch.utils import logging as log
   from badslam_tpu_torch.utils.timing import Timing
@@ -278,6 +278,8 @@ def run(args) -> int:
              f"device {slam.device}")
   if args.device_accurate_timings:
     Timing.set_device_accurate(True)
+  if args.save_timings:
+    slam.direct_ba.timings_stream = open(args.save_timings, "w")
 
   end = min(video.frame_count() - 1, config.end_frame)
   t_start = time.perf_counter()
@@ -291,18 +293,49 @@ def run(args) -> int:
     if not args.quiet and frames_done % 50 == 0:
       elapsed = time.perf_counter() - t_start
       print(f"frame {frame_index}: {frames_done / elapsed:.1f} FPS, "
-            f"{len(slam.keyframes)} keyframes")
+            f"{slam.direct_ba.keyframe_count} keyframes, "
+            f"{slam.direct_ba.surfel_count} surfels")
+
+  # Final BA (main.cc:724-770): windowed geometry-only passes, then global.
+  if args.final_ba_iterations > 0:
+    k = slam.direct_ba.keyframe_count
+    window = 16
+    for window_start in range(0, k, window // 2):
+      slam.direct_ba.bundle_adjustment(
+          do_surfel_updates=config.do_surfel_updates,
+          optimize_poses=False, optimize_geometry=True,
+          min_iterations=5, max_iterations=10,
+          active_keyframe_window_start=window_start,
+          active_keyframe_window_end=window_start + window - 1)
+    for _ in range(args.final_ba_iterations):
+      slam.direct_ba.bundle_adjustment(
+          do_surfel_updates=config.do_surfel_updates,
+          optimize_poses=True, optimize_geometry=True,
+          min_iterations=2, max_iterations=10,
+          active_keyframe_window_start=0,
+          active_keyframe_window_end=k - 1)
+    slam.update_keyframe_poses_in_video()
 
   if not args.quiet:
     elapsed = time.perf_counter() - t_start
     print(f"Done: {frames_done} frames in {elapsed:.1f} s "
           f"({frames_done / max(elapsed, 1e-9):.1f} FPS), "
-          f"{len(slam.keyframes)} keyframes")
+          f"{slam.direct_ba.keyframe_count} keyframes, "
+          f"{slam.direct_ba.surfel_count} surfels")
+    print(f"Surfel store: watermark {slam.direct_ba.surfel_watermark} of "
+          f"capacity {slam.direct_ba.surfels.capacity}; keyframe store: "
+          f"capacity {slam.direct_ba.kf.capacity}")
+  if args.export_point_cloud:
+    pos, nrm, col = slam.direct_ba.export_point_cloud()
+    ply.save_point_cloud_ply(args.export_point_cloud, pos, nrm, col)
   if args.export_poses:
     ts, poses = slam.trajectory()
     dataset_io.save_tum_trajectory(args.export_poses, ts, poses)
   if args.export_final_timings:
     Timing.export_file(args.export_final_timings)
+  if slam.direct_ba.timings_stream is not None:
+    slam.direct_ba.timings_stream.close()
+    slam.direct_ba.timings_stream = None
   return 0
 
 

@@ -1,1 +1,2 @@
-"""Residuals, solvers, odometry and the carried depth calibration."""
+"""Residuals, solvers, odometry, the map stores and their lifecycle, and the
+carried depth calibration."""

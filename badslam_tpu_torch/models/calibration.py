@@ -54,7 +54,7 @@ class DepthCalibration(nn.Module):
     (``np.asarray(ba.depth_intr)``, ``ba.a``, ``ba.cfactor``,
     ``ba.baseline_fx``)."""
     def t(v):
-      return torch.as_tensor(np.asarray(v, np.float32), device=device)
+      return torch.from_numpy(np.array(v, np.float32)).to(device)
     return cls(t(depth_intr), t(a), t(cfactor), t(baseline_fx), cell_size,
                depth_size)
 

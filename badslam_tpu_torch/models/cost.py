@@ -3,9 +3,7 @@ reaches.
 
 Port of ``badslam_tpu/models/cost.py:37-254`` (cost_function.cuh and
 kernel_opt_pose.cu:45-222 of the original BAD SLAM). All functions are dense
-over (N,) pixels; the caller masks invalid lanes. The surfel-side helpers
-(``tangent_projections``, ``raw_descriptor_residual``, ``descriptor_grads``,
-the color residual) come with the BA slice.
+over (N,) surfels or pixels; the caller masks invalid lanes.
 """
 
 from __future__ import annotations
@@ -14,12 +12,14 @@ from typing import Tuple
 
 import torch
 
+from badslam_tpu_torch.geometry.camera import PinholeCamera
 from badslam_tpu_torch.ops import interp, robust
 
 DEPTH_RESIDUAL_WEIGHT = 1.0
 DEPTH_TUKEY_PARAMETER = 10.0
 DESCRIPTOR_RESIDUAL_WEIGHT = 1e-2
 DESCRIPTOR_HUBER_PARAMETER = 10.0
+TANGENT_SCALING = 2.0  # cost_function.cuh:126
 
 
 def raw_depth_residual(unproj: torch.Tensor, local_pos: torch.Tensor,
@@ -58,6 +58,68 @@ def weighted_depth_cost(raw_residual: torch.Tensor,
                         scaling: float = 1.0) -> torch.Tensor:
   return DEPTH_RESIDUAL_WEIGHT * robust.tukey_residual(
       raw_residual, scaling * DEPTH_TUKEY_PARAMETER)
+
+
+def tangent_projections(
+    global_pos: torch.Tensor,        # (N, 3)
+    global_normal: torch.Tensor,     # (N, 3)
+    radius_sq: torch.Tensor,         # (N,)
+    frame_T_global_R: torch.Tensor,  # (3, 3)
+    frame_T_global_t: torch.Tensor,  # (3,)
+    color_cam: PinholeCamera,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Projections of two surfel-border tangent points
+  (cost_function.cuh:115-136): t1 = normal x (|nx| > 0.9 ? ey : ex), scaled
+  to 2 * radius; t2 = normal x t1."""
+  n = global_normal
+  ex = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+  ey = torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device)
+  axis = torch.where((torch.abs(n[..., 0]) > 0.9)[..., None], ey, ex)
+  t1 = torch.linalg.cross(n, axis)
+  t1 = t1 * (TANGENT_SCALING * torch.sqrt(
+      radius_sq / torch.clamp(torch.sum(t1 * t1, dim=-1), min=1e-12))
+             )[..., None]
+  t2 = torch.linalg.cross(n, t1)
+  t2 = t2 * (TANGENT_SCALING * torch.sqrt(
+      radius_sq / torch.clamp(torch.sum(t2 * t2, dim=-1), min=1e-12))
+             )[..., None]
+
+  def proj(p_global):
+    return color_cam.project_corner(
+        p_global @ frame_T_global_R.T + frame_T_global_t)
+
+  return proj(global_pos + t1), proj(global_pos + t2)
+
+
+def raw_descriptor_residual(
+    intensity: torch.Tensor,  # (H, W) in [0, 1]
+    pxy: torch.Tensor,        # (N, 2) center projection (corner convention)
+    t1_pxy: torch.Tensor,     # (N, 2)
+    t2_pxy: torch.Tensor,     # (N, 2)
+    desc: torch.Tensor,       # (N, 2) stored surfel descriptor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+  """r_i = 180 * (I(t_i) - I(c)) - d_i (cost_function.cuh:140-156)."""
+  c = interp.sample_bilinear(intensity, pxy[..., 0], pxy[..., 1])
+  i1 = interp.sample_bilinear(intensity, t1_pxy[..., 0], t1_pxy[..., 1])
+  i2 = interp.sample_bilinear(intensity, t2_pxy[..., 0], t2_pxy[..., 1])
+  return (180.0 * (i1 - c) - desc[..., 0], 180.0 * (i2 - c) - desc[..., 1])
+
+
+def descriptor_grads(
+    intensity: torch.Tensor, pxy: torch.Tensor, t1_pxy: torch.Tensor,
+    t2_pxy: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+  """d(180 * (I(t_i) - I(c))) / d(projected position), with all three sample
+  points moving together (cost_function.cuh:191-254): (grad_x_1, grad_y_1,
+  grad_x_2, grad_y_2), each (N,)."""
+  c_dx, c_dy = interp.sample_bilinear_grad(intensity, pxy[..., 0],
+                                           pxy[..., 1])
+  t1_dx, t1_dy = interp.sample_bilinear_grad(intensity, t1_pxy[..., 0],
+                                             t1_pxy[..., 1])
+  t2_dx, t2_dy = interp.sample_bilinear_grad(intensity, t2_pxy[..., 0],
+                                             t2_pxy[..., 1])
+  return (180.0 * (t1_dx - c_dx), 180.0 * (t1_dy - c_dy),
+          180.0 * (t2_dx - c_dx), 180.0 * (t2_dy - c_dy))
 
 
 def projected_position_pose_jacobian(grad_x_fx: torch.Tensor,

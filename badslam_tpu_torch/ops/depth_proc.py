@@ -215,3 +215,13 @@ def compute_radii_and_remove_isolated(
 
   ok = valid & (count >= 4)
   return torch.where(ok, min_sq, 0.0), torch.where(ok, depth, 0.0)
+
+
+def compute_min_max_depth(depth: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(min, max) over valid pixels (ComputeMinMaxDepthCUDAKernel,
+  cuda_depth_processing.cu:391-425), as 0-d tensors."""
+  valid = depth > 0.0
+  min_d = torch.where(valid, depth, float("inf")).min()
+  max_d = torch.where(valid, depth, 0.0).max()
+  return min_d, max_d

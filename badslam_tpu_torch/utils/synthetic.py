@@ -2,11 +2,11 @@
 
 Port of the parts of ``badslam_tpu/utils/synthetic.py`` (the convergence
 tests' camera and the heightmap world) and ``badslam_tpu/utils/tum_synth.py``
-(the constant-twist trajectory and the dataset writer) that the odometry
-slice needs. The world is a smooth random heightmap z(x, y) about 1 m in
-front of the camera, with band-limited value-noise texture, so depth and
-photometric residuals agree across views. Everything here is numpy on the
-host, except the trajectory, which uses the port's SE(3) exponential.
+(the constant-twist trajectory and the dataset writer) that the port needs,
+and the map-quality metric. The world is a smooth random heightmap z(x, y)
+about 1 m in front of the camera, with band-limited value-noise texture, so
+depth and photometric residuals agree across views. Everything here is numpy
+on the host, except the trajectory, which uses the port's SE(3) exponential.
 """
 
 from __future__ import annotations
@@ -148,3 +148,32 @@ def write_tum_dataset(out_dir: str, trajectory: List[np.ndarray],
   with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
     f.write("\n".join(gt_lines) + "\n")
   return out_dir
+
+
+def surfel_map_error(positions: np.ndarray, z_distance: float = 1.0,
+                     z_variation: float = 0.05, seed: int = 5) -> dict:
+  """Map-quality metric against the analytic heightmap world.
+
+  The world is the graph of z(x, y) = heightmap_z(x, y), so every
+  reconstructed surfel has a closed-form ground-truth surface point directly
+  below or above it: error_i = pos_z_i - z(pos_x_i, pos_y_i). The slopes are
+  small, so the vertical distance overestimates the point-to-surface
+  distance by a few percent only.
+
+  positions: (N, 3) world-frame positions of the valid surfels. Returns
+  summary statistics in metres."""
+  positions = np.asarray(positions, np.float64)
+  if positions.size == 0:
+    return {"count": 0}
+  err = positions[:, 2] - heightmap_z(positions[:, 0], positions[:, 1],
+                                      z_distance, z_variation, seed)
+  abs_err = np.abs(err)
+  return {
+      "count": int(positions.shape[0]),
+      "rmse_m": float(np.sqrt(np.mean(err ** 2))),
+      "mean_abs_m": float(np.mean(abs_err)),
+      "median_abs_m": float(np.median(abs_err)),
+      "p95_abs_m": float(np.quantile(abs_err, 0.95)),
+      "max_abs_m": float(np.max(abs_err)),
+      "bias_m": float(np.mean(err)),
+  }

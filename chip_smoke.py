@@ -20,12 +20,24 @@ Phases (any failure exits non-zero and prints no result line):
      bound from these inputs: bytes over the memory rate against float32
      operations over the float32 peak, the larger of the two;
   4. write a 640x480 TUM dataset of the heightmap world along the
-     constant-twist trajectory, 30 frames;
+     constant-twist trajectory, 51 frames (6 keyframes at the default
+     keyframe interval of 10);
   5. run the odometry-only CLI (``badslam_tpu_torch.main``) on it with the
      kernel's launch count reset just before, and check: rc 0, one launch
      per frame, finite poses, ATE RMSE <= 2.77 mm;
   6. print warm frames/s, per-phase ms and peak device memory;
-  7. check that no module of JAX or of the JAX package was imported.
+  7. run the CLI with sequential BA on (the reference's defaults: keyframe
+     every 10 frames, 10 BA iterations per keyframe, sparsification 4,
+     min_observation_count 1/2/3), the launch count reset just before, the
+     host mirrors verified after every BA call, and check: rc 0, one launch
+     per frame, finite poses, ATE RMSE <= 2.77 mm, 6 keyframes, live
+     surfels > 0, every BA call ran >= 1 iteration, the exported PLY has as
+     many points as live surfels, all finite, and their median |error|
+     against the heightmap is < 1e-3 m; print frames/s, per-phase ms, BA
+     iterations per call, store sizes and peak device memory;
+  8. run bundle adjustment twice from one map state and check that poses
+     and surfel stores are bitwise equal;
+  9. check that no module of JAX or of the JAX package was imported.
 
 The next-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA device and no network.
@@ -33,8 +45,11 @@ The next-to-last line is the kernels' JSON summary; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -43,18 +58,28 @@ import time
 
 import numpy as np
 
-# Odometry-only ATE bounds. The gate is the reference's record for this
+FRAMES = 51
+KEYFRAME_INTERVAL_BA = 10
+# ATE bounds. The gate is the reference's record for the odometry-only
 # configuration (30 frames at 160x120); its formula, 2 * per-frame
 # interpolation bias * frames / sqrt(3) with the bias halving per
 # resolution doubling, gives the 640x480 value, which has no record yet.
 ATE_GATE_M = 2.77e-3
-ATE_FORMULA_640_M = float(2.0 * 8e-5 * (160.0 / 640.0) * 30 / np.sqrt(3.0))
+ATE_FORMULA_640_M = float(2.0 * 8e-5 * (160.0 / 640.0) * FRAMES
+                          / np.sqrt(3.0))
+# Median |error| of the exported surfels against the analytic heightmap
+# (the reference's map-quality gate for this world).
+MAP_MEDIAN_GATE_M = 1e-3
+BA_PHASES = ("Bundle adjustment", "BA surfel creation",
+             "BA surfel activation", "BA geometry optimization",
+             "BA initial surfel merge", "BA pose optimization",
+             "BA final surfel merge and compact",
+             "BA final surfel del. and radius upd.", "BA surfel compaction")
 TOLERANCES = {"filtered": 1e-5, "normals": 1e-4, "radius_sq": 1e-6}
 PREPROCESS = dict(sigma_xy=1.5, sigma_inv_depth=0.005, radius_factor=2.0,
                   max_depth=5.0)
 # The generic-radius case: int(2.0 * 1.0 + 0.5) = 2.
 PREPROCESS_RADIUS_2 = dict(PREPROCESS, sigma_xy=1.0)
-FRAMES = 30
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # device memory rate, float32 rate outside the tensor cores (an FMA counts
@@ -261,21 +286,74 @@ def check_kernel(device) -> dict:
   return {"max_abs_err": worst, **timing}
 
 
-def run_main_path(workdir: str) -> dict:
-  """Phases 4-6: the CLI on a 640x480 dataset, counting kernel launches."""
-  import torch
-  from badslam_tpu_torch import main as port_main
-  from badslam_tpu_torch.io.dataset import read_tum_trajectory
-  from badslam_tpu_torch.ops import fused_preprocess as fp
+def write_dataset(workdir: str) -> str:
+  """Phase 4."""
   from badslam_tpu_torch.utils import synthetic
-  from badslam_tpu_torch.utils.timing import Timing
-
   data = os.path.join(workdir, "tum640")
   t0 = time.perf_counter()
   synthetic.write_tum_dataset(data, synthetic.straight_trajectory(FRAMES),
                               width=640, height=480)
   print(f"wrote {FRAMES}-frame 640x480 dataset in "
         f"{time.perf_counter() - t0:.1f} s", flush=True)
+  return data
+
+
+def run_cli(argv, label: str) -> dict:
+  """One run of the port's CLI with the kernel's launch count set to 0 just
+  before and read just after; its standard output is echoed."""
+  import torch
+  from badslam_tpu_torch import main as port_main
+  from badslam_tpu_torch.ops import fused_preprocess as fp
+  from badslam_tpu_torch.utils.timing import Timing
+  Timing.set_device_accurate(False)
+  Timing.reset()
+  torch.cuda.reset_peak_memory_stats()
+  out = io.StringIO()
+  fp.fused_depth_preprocess.launches = 0
+  with contextlib.redirect_stdout(out):
+    rc = port_main.main(argv)
+  launches = fp.fused_depth_preprocess.launches
+  peak = torch.cuda.max_memory_allocated()
+  print(out.getvalue().rstrip(), flush=True)
+  if rc != 0:
+    fail(f"{label}: the CLI returned {rc}")
+  if launches != FRAMES:
+    fail(f"{label}: fused_depth_preprocess launched {launches} times in "
+         f"{FRAMES} frames")
+  return {"launches": launches, "peak": peak, "stdout": out.getvalue(),
+          "stats": Timing.stats()}
+
+
+def check_trajectory(poses_path: str, data: str, label: str) -> float:
+  from badslam_tpu_torch.io.dataset import read_tum_trajectory
+  _, est = read_tum_trajectory(poses_path)
+  _, gt = read_tum_trajectory(os.path.join(data, "groundtruth.txt"))
+  if est.shape != (FRAMES, 4, 4) or not np.isfinite(est).all():
+    fail(f"{label} trajectory: shape {est.shape}, finite "
+         f"{np.isfinite(est).all()}")
+  ate = ate_rmse(est[:, :3, 3].astype(np.float64),
+                 gt[:, :3, 3].astype(np.float64))
+  if not ate <= ATE_GATE_M:
+    fail(f"{label}: ATE {ate} m > {ATE_GATE_M} m")
+  return ate
+
+
+def print_phases(stats, phases, skip) -> None:
+  """count, mean and median ms of each phase; ``skip`` maps a phase to the
+  number of leading (cold) samples left out."""
+  for phase in phases:
+    if phase not in stats:
+      print(f"phase {phase}: count 0")
+      continue
+    s = stats[phase]
+    warm = s.samples[skip.get(phase, 0):] or s.samples
+    print(f"phase {phase}: count {s.count}, warm mean "
+          f"{statistics.mean(warm) * 1e3!r} ms, median "
+          f"{statistics.median(warm) * 1e3!r} ms (device-accurate)")
+
+
+def run_main_path(workdir: str, data: str) -> dict:
+  """Phases 5-6: the odometry-only CLI, counting kernel launches."""
   poses_path = os.path.join(workdir, "poses.txt")
   timings_path = os.path.join(workdir, "timings.txt")
   argv = [data, "--keyframe_interval", "5", "--num_scales", "5",
@@ -283,46 +361,162 @@ def run_main_path(workdir: str) -> dict:
           "--no_loop_detection", "--sequential_ba", "--restrict_fps_to", "0",
           "--device_accurate_timings", "--export_poses", poses_path,
           "--export_final_timings", timings_path]
-
-  Timing.reset()
-  torch.cuda.reset_peak_memory_stats()
-  fp.fused_depth_preprocess.launches = 0
-  rc = port_main.main(argv)
-  launches = fp.fused_depth_preprocess.launches
-  peak = torch.cuda.max_memory_allocated()
-  if rc != 0:
-    fail(f"main path returned {rc}")
-  if launches != FRAMES:
-    fail(f"fused_depth_preprocess launched {launches} times in {FRAMES} "
-         f"frames")
-
-  _, est = read_tum_trajectory(poses_path)
-  _, gt = read_tum_trajectory(os.path.join(data, "groundtruth.txt"))
-  if est.shape != (FRAMES, 4, 4) or not np.isfinite(est).all():
-    fail(f"trajectory: shape {est.shape}, finite {np.isfinite(est).all()}")
-  ate = ate_rmse(est[:, :3, 3].astype(np.float64),
-                 gt[:, :3, 3].astype(np.float64))
-  print(f"ATE RMSE {ate!r} m over {FRAMES} frames; gate {ATE_GATE_M} m "
-        f"(160x120 record), formula bound at 640x480 "
+  run = run_cli(argv, "odometry-only path")
+  ate = check_trajectory(poses_path, data, "odometry-only path")
+  print(f"odometry-only ATE RMSE {ate!r} m over {FRAMES} frames; gate "
+        f"{ATE_GATE_M} m (160x120 record), formula bound at 640x480 "
         f"{ATE_FORMULA_640_M!r} m (no record to hold it to)")
-  if not ate <= ATE_GATE_M:
-    fail(f"ATE {ate} m > {ATE_GATE_M} m")
 
-  stats = Timing.stats()
+  stats = run["stats"]
   frame_s = stats["[BadSlam::ProcessFrame]"].samples
-  print(f"warm frames/s (frames 2..{FRAMES - 1}): "
+  print(f"odometry-only warm frames/s (frames 2..{FRAMES - 1}): "
         f"{(len(frame_s) - 2) / sum(frame_s[2:])!r}; first two frames "
         f"{frame_s[0] * 1e3:.1f} ms, {frame_s[1] * 1e3:.1f} ms")
-  for phase in ("Preprocessing", "Odometry", "Keyframe creation"):
-    s = stats[phase]
-    warm = s.samples[2:] if phase != "Keyframe creation" else s.samples[1:]
-    print(f"phase {phase}: count {s.count}, warm mean "
-          f"{statistics.mean(warm) * 1e3!r} ms, median "
-          f"{statistics.median(warm) * 1e3!r} ms (device-accurate)")
-  print(f"peak device memory (max_memory_allocated): {peak} bytes")
+  print_phases(stats, ("Preprocessing", "Odometry", "Keyframe creation"),
+               {"Preprocessing": 2, "Odometry": 2, "Keyframe creation": 1})
+  print(f"odometry-only peak device memory (max_memory_allocated): "
+        f"{run['peak']} bytes")
   with open(timings_path) as f:
     print(f.read().rstrip())
-  return {"launches": launches}
+  return {"launches": run["launches"], "ate": ate}
+
+
+def run_ba_path(workdir: str, data: str, odometry_ate: float) -> dict:
+  """Phase 7: the CLI with sequential BA on, at the reference's defaults."""
+  from badslam_tpu_torch.io import ply
+  from badslam_tpu_torch.slam import direct_ba
+  from badslam_tpu_torch.utils import synthetic
+
+  poses_path = os.path.join(workdir, "poses_ba.txt")
+  ply_path = os.path.join(workdir, "map.ply")
+  stream_path = os.path.join(workdir, "ba_iterations.txt")
+  timings_path = os.path.join(workdir, "timings_ba.txt")
+  argv = [data, "--sequential_ba", "--no_loop_detection",
+          "--restrict_fps_to", "0", "--max_depth", "5.0", "--num_scales", "5",
+          "--device_accurate_timings", "--export_poses", poses_path,
+          "--export_point_cloud", ply_path, "--save_timings", stream_path,
+          "--export_final_timings", timings_path]
+  # Recount on the device and check the host mirrors after every BA call.
+  direct_ba.DEBUG_VERIFY_COUNT = True
+  try:
+    run = run_cli(argv, "BA path")
+  finally:
+    direct_ba.DEBUG_VERIFY_COUNT = False
+  ate = check_trajectory(poses_path, data, "BA path")
+  print(f"BA path ATE RMSE {ate!r} m over {FRAMES} frames (gate "
+        f"{ATE_GATE_M} m); odometry-only on the same frames "
+        f"{odometry_ate!r} m")
+
+  done = re.search(r"Done: (\d+) frames .* (\d+) keyframes, (\d+) surfels",
+                   run["stdout"])
+  store = re.search(r"Surfel store: watermark (\d+) of capacity (\d+); "
+                    r"keyframe store: capacity (\d+)", run["stdout"])
+  if not done or not store:
+    fail("BA path: no Done / Surfel store line in the CLI's output")
+  keyframes, surfels = int(done.group(2)), int(done.group(3))
+  watermark, capacity, kf_capacity = (int(g) for g in store.groups())
+  expected_keyframes = (FRAMES - 1) // KEYFRAME_INTERVAL_BA + 1
+  if keyframes != expected_keyframes or keyframes < 4:
+    fail(f"BA path: {keyframes} keyframes, expected {expected_keyframes}")
+  if surfels <= 0:
+    fail("BA path: no live surfels")
+
+  # The --save_timings stream: one line per BA iteration.
+  per_call = {}
+  with open(stream_path) as f:
+    for line in f:
+      m = re.match(r"BA_count (\d+) inner_iteration (\d+) keyframe_count "
+                   r"(\d+) surfel_count (\d+)", line)
+      if not m:
+        fail(f"BA path: bad --save_timings line {line!r}")
+      per_call[int(m.group(1))] = int(m.group(2)) + 1
+  stats = run["stats"]
+  calls = stats["Bundle adjustment"].count if "Bundle adjustment" in stats \
+      else 0
+  iterations = [per_call[c] for c in sorted(per_call)]
+  if calls < keyframes - 1 or len(per_call) != calls or min(iterations) < 1:
+    fail(f"BA path: {calls} BA calls, iterations per call {iterations}")
+
+  pos, nrm, col = ply.load_point_cloud_ply(ply_path)
+  if pos.shape != (surfels, 3) or not (np.isfinite(pos).all()
+                                       and np.isfinite(nrm).all()):
+    fail(f"BA path: PLY holds {pos.shape} points, {surfels} live surfels")
+  err = synthetic.surfel_map_error(pos)
+  print(f"BA path map error against the heightmap: {json.dumps(err)} "
+        f"(gate: median_abs_m < {MAP_MEDIAN_GATE_M})")
+  if not err["median_abs_m"] < MAP_MEDIAN_GATE_M:
+    fail(f"BA path: map median |error| {err['median_abs_m']} m")
+
+  frame_s = stats["[BadSlam::ProcessFrame]"].samples
+  print(f"BA path warm frames/s (frames 2..{FRAMES - 1}, BA included): "
+        f"{(len(frame_s) - 2) / sum(frame_s[2:])!r}")
+  print_phases(stats, ("Preprocessing", "Odometry", "Keyframe creation")
+               + BA_PHASES,
+               {"Preprocessing": 2, "Odometry": 2, "Keyframe creation": 1})
+  ba_s = sum(stats["Bundle adjustment"].samples)
+  print(f"BA path: {calls} BA calls, iterations per call {iterations}, "
+        f"{ba_s / sum(iterations) * 1e3!r} ms per BA iteration (end tasks "
+        f"included)")
+  print(f"BA path: {keyframes} keyframes (store capacity {kf_capacity}), "
+        f"{surfels} live surfels, watermark {watermark}, capacity "
+        f"{capacity}; host mirrors verified after each of {calls} BA calls")
+  print(f"BA path peak device memory (max_memory_allocated): {run['peak']} "
+        f"bytes")
+  with open(timings_path) as f:
+    print(f.read().rstrip())
+  return {"launches": run["launches"]}
+
+
+def check_ba_determinism(data: str, device) -> None:
+  """Phase 8: bundle adjustment twice from one map state, held bitwise
+  equal. The state is the map after 21 frames without BA (3 keyframes,
+  the first one's surfels), the second and third keyframe moved by a
+  seeded perturbation of up to 1 mm and 0.3 mrad so that BA has several
+  iterations of work."""
+  import torch
+  from badslam_tpu_torch import main as port_main
+  from badslam_tpu_torch.geometry import se3
+  from badslam_tpu_torch.io import dataset as dataset_io
+  from badslam_tpu_torch.slam.direct_ba import DirectBA
+  from badslam_tpu_torch.slam.system import BadSlam
+  args = port_main.build_parser().parse_args(
+      [data, "--sequential_ba", "--no_loop_detection", "--max_depth", "5.0",
+       "--max_num_ba_iterations_per_keyframe", "0"])
+  config = port_main.config_from_args(args)
+  video = dataset_io.load_tum_dataset(
+      data, None, raw_to_float_depth=config.raw_to_float_depth)
+  slam = BadSlam(config, video, device=device)
+  for i in range(2 * KEYFRAME_INTERVAL_BA + 1):
+    slam.process_frame(i)
+  ba = slam.direct_ba
+  surfels, kf, host = ba.to_numpy()
+  rng = np.random.default_rng(0)
+  for i in range(1, ba.keyframe_count):
+    noise = rng.uniform(-1, 1, 6) * ([1e-3] * 3 + [3e-4] * 3)
+    kf["global_T_frame"][i] = kf["global_T_frame"][i] @ se3.exp(
+        torch.as_tensor(noise, dtype=torch.float32)).numpy()
+  results = []
+  for _ in range(2):
+    twin = DirectBA.from_numpy(
+        config, video.depth_camera, video.color_camera, surfels, kf,
+        ba.calibration, host, device)
+    iterations, converged = twin.bundle_adjustment(
+        max_iterations=10, active_keyframe_window_start=0,
+        active_keyframe_window_end=ba.keyframe_count - 1)
+    torch.cuda.synchronize()
+    results.append((iterations, converged) + twin.to_numpy()[:2])
+  (it_a, conv_a, s_a, k_a), (it_b, conv_b, s_b, k_b) = results
+  moved = float(np.abs(k_a["global_T_frame"] - kf["global_T_frame"]).max())
+  if (it_a, conv_a) != (it_b, conv_b):
+    fail(f"BA determinism: {it_a, conv_a} against {it_b, conv_b}")
+  for name, a, b in ([(n, s_a[n], s_b[n]) for n in s_a]
+                     + [(n, k_a[n], k_b[n]) for n in k_a]):
+    if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+      fail(f"BA determinism: {name} differs between two runs from one state")
+  print(f"BA determinism: two runs of {it_a} iterations from one state "
+        f"({ba.keyframe_count} keyframes, {int(s_a['valid'].sum())} live "
+        f"surfels after, poses moved by up to {moved!r}) are bitwise equal "
+        f"in every field of both stores")
 
 
 def main() -> int:
@@ -360,7 +554,11 @@ def main() -> int:
 
   kernel = check_kernel(device)
   with tempfile.TemporaryDirectory() as workdir:
-    path = run_main_path(workdir)
+    data = write_dataset(workdir)
+    path = run_main_path(workdir, data)
+    ba_path = run_ba_path(workdir, data, path["ate"])
+    check_ba_determinism(data, device)
+  launches = path["launches"] + ba_path["launches"]
   foreign = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "badslam_tpu"))
   if foreign:
@@ -370,8 +568,8 @@ def main() -> int:
       "name": "fused_depth_preprocess", "route": "cuda",
       "source": "badslam_tpu_torch/csrc/fused_preprocess.cu",
       "replaces": "badslam_tpu/ops/pallas_preprocess.py:76",
-      "launches": path["launches"],
-      "launches_per_frame": path["launches"] / FRAMES,
+      "launches": launches,
+      "launches_per_frame": launches / (2 * FRAMES),
       "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
       "call_ms": kernel["call_ms"], "plain_ms": kernel["plain_ms"],
       "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
