@@ -122,8 +122,10 @@ def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
   R = R.expand(batch + (3, 3))
   t = t.expand(batch + (3,))
   top = torch.cat([R, t[..., :, None]], dim=-1)
-  bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                        device=R.device).expand(batch + (1, 4))
+  # The row [0, 0, 0, 1] is made on the device: a tensor built from a host
+  # list would be a host-to-device copy, which waits for the stream.
+  bottom = torch.cat([R.new_zeros(batch + (1, 3)), R.new_ones(batch + (1, 1))],
+                     dim=-1)
   return torch.cat([top, bottom], dim=-2)
 
 

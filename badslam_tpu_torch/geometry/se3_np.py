@@ -102,6 +102,19 @@ def slerp(q0: np.ndarray, q1: np.ndarray, alpha: float) -> np.ndarray:
   return q / np.linalg.norm(q)
 
 
+def average_poses(T_list: np.ndarray) -> np.ndarray:
+  """Average of (K, 4, 4) poses: the mean translation and the chordal mean
+  rotation, by averaging hemisphere-aligned quaternions (AveragePose,
+  util.cc:110 of the original)."""
+  T_list = np.asarray(T_list, np.float32)
+  t = T_list[:, 0:3, 3].mean(axis=0)
+  qs = np.stack([matrix_to_quaternion(T[0:3, 0:3]) for T in T_list])
+  signs = np.where(qs @ qs[0] < 0, -1.0, 1.0)
+  q = (qs * signs[:, None]).mean(axis=0)
+  q = q / np.linalg.norm(q)
+  return make(quaternion_to_matrix(q).astype(np.float32), t)
+
+
 def interpolate(T0: np.ndarray, T1: np.ndarray, alpha: float) -> np.ndarray:
   """Pose interpolation: slerp on rotation + lerp on translation."""
   T0 = np.asarray(T0, np.float32)

@@ -68,6 +68,19 @@ class RGBDVideo:
   def frame_count(self) -> int:
     return len(self.frames)
 
+  def fps(self, default: float = 30.0) -> float:
+    """Frame rate from the depth timestamps (the median positive
+    inter-frame delta). The loop-detection throttle derives its default
+    frequency from it (bad_slam_config.h:367-370), not from a fixed 30."""
+    if len(self.frames) < 2:
+      return default
+    ts = np.asarray([f.depth_timestamp for f in self.frames], np.float64)
+    dt = np.diff(ts)
+    dt = dt[dt > 0]
+    if dt.size == 0:
+      return default
+    return float(1.0 / np.median(dt))
+
 
 def read_tum_trajectory(path: str) -> Tuple[np.ndarray, np.ndarray]:
   """(timestamps (N,), poses (N, 4, 4) global_T_frame) of a TUM trajectory

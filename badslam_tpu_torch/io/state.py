@@ -6,7 +6,7 @@ Port of ``badslam_tpu/io/state.py`` (io.{h,cc} of the original BAD SLAM):
     parameters, keyframe metadata, the persistent surfel attributes, the BA
     counters;
   * LoadState (io.cc:185-705): restores them and re-creates the keyframes'
-    image data from the dataset;
+    image data, and the loop detector's database, from the dataset;
   * SaveCalibration / LoadCalibration (io.h:66-74): three text files (depth
     intrinsics, color intrinsics, depth deformation), center convention on
     disk.
@@ -161,6 +161,12 @@ def load_state(path: str, slam) -> None:
         processed.depth, processed.normals, processed.radius_sq,
         processed.intensity, processed.rgb, kf_poses[slot], frame_index)
     assert idx == slot, f"keyframe slot mismatch on load: {idx} != {slot}"
+    if slam.loop_detector is not None:
+      # The detector's database from the same images, as LoadState does
+      # (io.cc:521), so that later keyframes can close against the map.
+      slam.loop_detector.add_to_database(
+          idx, processed.intensity.cpu().numpy(),
+          processed.depth.cpu().numpy())
   # Overwrite covisibility and activation with the snapshot's.
   k = ba.kf.capacity
   covis = np.zeros((k, k), bool)

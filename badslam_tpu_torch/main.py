@@ -1,16 +1,18 @@
 """CLI entry point: offline TUM-dataset runs, sequential BA (alternating
 or, with ``--use_pcg``, joint), self-calibration with
-``--optimize_intrinsics``, calibration and state files.
+``--optimize_intrinsics``, loop closure, calibration and state files.
 
 The flags are the reference CLI's (this module keeps its own copy of the
 parser of ``badslam_tpu/main.py``; ``tests/test_torch_config.py`` holds the
 two against each other), plus ``--device {cuda,cpu}``. A command line runs
 unchanged on either package. The run computes on the CUDA device unless
 ``--device cpu`` asks otherwise, and fails where no CUDA device is visible.
-The port runs the sequential path without loop detection:
+The port runs the sequential path, with loop detection on its own thread
+unless ``--sequential_loop_detection`` or ``--no_loop_detection`` is given:
 
   python -m badslam_tpu_torch.main <dataset_dir> --sequential_ba \\
-      --no_loop_detection [--optimize_intrinsics] [--use_pcg] \\
+      [--sequential_loop_detection] [--loop_detection_image_frequency F] \\
+      [--optimize_intrinsics] [--use_pcg] \\
       [--export_poses out.txt] [--export_point_cloud map.ply] \\
       [--export_calibration base] [--import_calibration base] \\
       [--save_state state.npz] [--load_state state.npz] ...
@@ -255,11 +257,8 @@ def _refuse_unported_flags(args) -> None:
 
 def run(args) -> int:
   from badslam_tpu_torch.io import dataset as dataset_io
-  from badslam_tpu_torch.io import ply
-  from badslam_tpu_torch.io import state as state_io
   from badslam_tpu_torch.slam.system import BadSlam, NoCudaDeviceError
   from badslam_tpu_torch.utils import logging as log
-  from badslam_tpu_torch.utils.timing import Timing
 
   _refuse_unported_flags(args)
   if args.log_level:
@@ -277,6 +276,19 @@ def run(args) -> int:
     log.info(f"Loaded {video.frame_count()} frames from {args.dataset} "
              f"({video.depth_camera.width}x{video.depth_camera.height}), "
              f"device {slam.device}")
+  try:
+    return _run_slam(args, config, video, slam)
+  finally:
+    # A failing run must not hang on the loop detector's thread.
+    slam.stop_ba_thread_and_wait()
+
+
+def _run_slam(args, config, video, slam) -> int:
+  from badslam_tpu_torch.io import dataset as dataset_io
+  from badslam_tpu_torch.io import ply
+  from badslam_tpu_torch.io import state as state_io
+  from badslam_tpu_torch.utils.timing import Timing
+
   if args.device_accurate_timings:
     Timing.set_device_accurate(True)
   if args.save_timings:
@@ -300,6 +312,9 @@ def run(args) -> int:
       print(f"frame {frame_index}: {frames_done / elapsed:.1f} FPS, "
             f"{slam.direct_ba.keyframe_count} keyframes, "
             f"{slam.direct_ba.surfel_count} surfels")
+
+  # Stop the loop detector's thread before the final BA (main.cc:723).
+  slam.stop_ba_thread_and_wait()
 
   # Final BA (main.cc:724-770): windowed geometry-only passes, then global.
   if args.final_ba_iterations > 0:
@@ -332,6 +347,9 @@ def run(args) -> int:
     print(f"Surfel store: watermark {slam.direct_ba.surfel_watermark} of "
           f"capacity {slam.direct_ba.surfels.capacity}; keyframe store: "
           f"capacity {slam.direct_ba.kf.capacity}")
+    if slam.loop_detector is not None:
+      print(f"Loops closed: {slam.loop_detector.num_loops_closed}, "
+            f"ignored: {slam.loop_detector.num_loops_ignored}")
   if args.export_point_cloud:
     pos, nrm, col = slam.direct_ba.export_point_cloud()
     ply.save_point_cloud_ply(args.export_point_cloud, pos, nrm, col)

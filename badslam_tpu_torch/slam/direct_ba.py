@@ -639,10 +639,10 @@ class DirectBA:
 
   # --- keyframe deletion / merging (memory pressure) ---
 
-  def delete_keyframe(self, keyframe_index: int):
+  def delete_keyframe(self, keyframe_index: int, loop_detector=None):
     """DirectBA::DeleteKeyframe (direct_ba.cc:207-229): the slot is
     invalidated, so indices stay stable; its covisibility row and column are
-    cleared."""
+    cleared, and the keyframe leaves ``loop_detector``'s database."""
     kf = self.kf
     covis = kf.covis.clone()
     covis[keyframe_index, :] = False
@@ -653,8 +653,11 @@ class DirectBA:
     activation[keyframe_index] = INACTIVE
     self.kf = kf._replace(valid=valid, activation=activation, covis=covis)
     self._kf_valid_host[keyframe_index] = False
+    if loop_detector is not None:
+      loop_detector.remove_keyframe(keyframe_index)
 
-  def merge_keyframes(self, approx_merge_count: int = 1) -> int:
+  def merge_keyframes(self, loop_detector=None,
+                      approx_merge_count: int = 1) -> int:
     """DirectBA::MergeKeyframes (direct_ba.cc:251-338): rank consecutive
     keyframe pairs by a combined angle/translation distance (90 degrees
     count like 0.5 m) and delete the middle keyframes of the closest chains.
@@ -689,7 +692,7 @@ class DirectBA:
     for _, p, m, nx in distances[:approx_merge_count]:
       if p in dead or m in dead or nx in dead:
         continue
-      self.delete_keyframe(m)
+      self.delete_keyframe(m, loop_detector)
       dead.add(m)
       deleted += 1
     return deleted

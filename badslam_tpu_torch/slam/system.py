@@ -11,8 +11,9 @@ Port of the sequential path of ``badslam_tpu/slam/system.py``
   PredictFramePose     two constant-velocity hypotheses, orthonormalized
   RunOdometry          calibrate, build pyramids, coarse-to-fine pairwise
                        tracking, tracking-failure gate
-  CreateKeyframe       register the keyframe in the map (the first one
-                       creates surfels unfiltered), rebase the motion-model
+  CreateKeyframe       the memory watchdog, register the keyframe in the
+                       map (the first one creates surfels unfiltered), loop
+                       detection and closing, rebase the motion-model
                        history, plan BA iterations
   RunBundleAdjustment  BA over the map (alternating, or joint by PCG with
                        ``use_pcg``), with self-calibration on the schedule
@@ -23,13 +24,18 @@ Self-calibration changes the shared ``DepthCalibration`` in place while the
 system runs: the next frame's preprocessing and odometry read the new
 values from the same tensors.
 
-Configurations outside the port so far (loop detection, the parallel BA
-thread, the pipelined front-end) are refused in ``BadSlam.__init__``, each
-naming the ROADMAP item that will port it.
+Loop detection (``loop/detector.py``) runs its feature extraction and
+database query on a thread of its own unless ``parallel_loop_detection`` is
+off; the closing runs here, on the main thread, inside ``create_keyframe``.
+
+Configurations outside the port so far (the parallel BA thread, the
+pipelined front-end) are refused in ``BadSlam.__init__``, each naming the
+ROADMAP item that will port it.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -50,6 +56,16 @@ from badslam_tpu_torch.slam.direct_ba import DirectBA, unported
 from badslam_tpu_torch.utils import logging as log
 from badslam_tpu_torch.utils.timing import Timing
 
+# The pose-graph weight of an odometry edge into a keyframe made while the
+# tracking-failure gate had fired (a constant-position guess, not a
+# measurement): a later loop closure then puts its correction there. Its
+# home in the reference is ``badslam_tpu/slam/pipelined.py``; it moves to
+# the port's ``slam/pipelined.py`` when that module is ported (ROADMAP queue
+# 1 item 10).
+WEAK_EDGE_WEIGHT = 0.05
+# kApproxKeyframeSize of the memory watchdog (bad_slam.cc:958-968).
+APPROX_KEYFRAME_BYTES = 4 * 1024 * 1024
+
 
 class ProcessedFrame(NamedTuple):
   """Output of PreprocessFrame: everything a keyframe needs (on the
@@ -69,8 +85,6 @@ class NoCudaDeviceError(RuntimeError):
 def check_supported(config: BadSlamConfig, device: torch.device) -> None:
   """Raise NotImplementedError for a configuration outside the slice."""
   refusals = [
-      (config.enable_loop_detection,
-       "loop detection (pass --no_loop_detection)", 'item 7 "Loop closure"'),
       (config.parallel_ba,
        "parallel BA (pass --sequential_ba)", 'item 6 "Threads"'),
       (config.pipelined_frontend or config.pipelined_concurrent_ba,
@@ -96,10 +110,11 @@ def check_supported(config: BadSlamConfig, device: torch.device) -> None:
 class BadSlam:
   """The system orchestrator (class BadSlam, bad_slam.h), sequential path.
   It computes on ``device``: the CUDA device when none is named, the CPU
-  only when the caller asks for it."""
+  only when the caller asks for it. ``loop_detector`` replaces the one
+  that ``config.enable_loop_detection`` would build."""
 
   def __init__(self, config: BadSlamConfig, rgbd_video: RGBDVideo,
-               device=None):
+               device=None, loop_detector=None):
     self.device = torch.device("cuda" if device is None else device)
     if self.device.type == "cuda" and not torch.cuda.is_available():
       raise NoCudaDeviceError(
@@ -117,6 +132,16 @@ class BadSlam:
     self.direct_ba = DirectBA(
         config, rgbd_video.depth_camera, rgbd_video.color_camera,
         device=self.device, calibration=self.calibration)
+    if loop_detector is None and config.enable_loop_detection:
+      from badslam_tpu_torch.loop.detector import LoopDetector
+      loop_detector = LoopDetector(
+          config, rgbd_video.color_camera,
+          parallel=config.parallel_loop_detection)
+    self.loop_detector = loop_detector
+    # Guards the map's poses and the trajectory against a concurrent
+    # writer: the loop closure takes it (the BA thread of ROADMAP queue 1
+    # item 6 will share it).
+    self._ba_lock = threading.Lock()
 
     # Base keyframe: its slot in the keyframe store, pose, images, and the
     # motion-model history (<= 3 relative poses, base_kf_T_frame and its
@@ -132,6 +157,15 @@ class BadSlam:
     self.last_frame_index = -1
     # frame_index of each keyframe slot (for the trajectory deformation).
     self.keyframe_frame_indices: List[int] = []
+    # Per keyframe slot, the pose-graph weight of the odometry edge from the
+    # previous keyframe into it: WEAK_EDGE_WEIGHT when the tracking-failure
+    # gate fired since the previous keyframe, else 1.
+    self.keyframe_edge_weight: dict = {}
+    self._tracking_failed_since_kf = False
+    # Keyframes deleted by the memory watchdog's merges over the run.
+    self.num_keyframes_merged = 0
+    self._dataset_fps: Optional[float] = None
+    self._loop_detection_counter = -1
     # Real-time pacing state (EndFrame, bad_slam.cc:449-479).
     self._actual_frame_start_time = 0.0
     self._target_frame_end_time = 0.0
@@ -281,37 +315,13 @@ class BadSlam:
     unfiltered depth, the base side the keyframe's filtered depth, both
     calibrated."""
     cfg = self.config
-    calib = self.calibration
     est1, est2 = self.predict_frame_pose()
-    w, h = calib.depth_size
+    w, h = self.calibration.depth_size
 
     base = self.base_kf_images
-    base_intensity, tracked_intensity = base.intensity, processed.intensity
-    residual_type = "gradient_xy"
-    if cfg.use_gradmag_for_tracking:
-      residual_type = "gradmag"
-      base_intensity = image_proc.sobel_gradient_magnitude(base_intensity)
-      tracked_intensity = image_proc.sobel_gradient_magnitude(
-          tracked_intensity)
-    base_pyr = build_pyramid(
-        depth_model.calibrate_depth_image(calib.a, calib.cfactor, base.depth,
-                                          calib.cell_size),
-        base.normals, base_intensity, cfg.num_scales)
-    tracked_pyr = build_pyramid(
-        depth_model.calibrate_depth_image(calib.a, calib.cfactor,
-                                          processed.raw_depth,
-                                          calib.cell_size),
-        processed.normals, tracked_intensity, cfg.num_scales)
-    base_T_frame, n_resid = odometry_mod.track_frame_pairwise(
-        base_pyr, tracked_pyr, calib.camera(), calib.baseline_fx,
-        torch.as_tensor(est1, device=self.device),
-        torch.as_tensor(est2, device=self.device),
-        test_different_initial_estimates=True,
-        use_depth_residuals=cfg.use_geometric_residuals,
-        use_descriptor_residuals=cfg.use_photometric_residuals,
-        use_pyramid_level_0=True,
-        convergence_threshold=cfg.odometry_convergence_threshold,
-        residual_type=residual_type)
+    base_T_frame, n_resid = self._track_pairwise(
+        base.depth, base.normals, base.intensity, processed.raw_depth,
+        processed.normals, processed.intensity, est1, est2)
     # Per-frame host reads, as in the reference: renormalize the result
     # (it feeds the motion model) and read the residual count.
     base_T_frame = se3_np.orthonormalize(base_T_frame.cpu().numpy())
@@ -325,11 +335,13 @@ class BadSlam:
                 else np.eye(4, dtype=np.float32))
     frame_speed = float(np.linalg.norm(base_T_frame[:3, 3] - prev_rel[:3, 3]))
     if (not np.isfinite(base_T_frame).all() or n_resid < min_resid
-        or frame_speed > cfg.max_translation_per_frame):
+        or frame_speed > cfg.max_translation_per_frame
+        or self._tracking_failure_injected(frame_index)):
       log.warning(f"tracking failed at frame {frame_index} "
                   f"({n_resid} residuals, {frame_speed:.2f} m moved); "
                   "holding last pose")
       base_T_frame = prev_rel
+      self._tracking_failed_since_kf = True
 
     self.rgbd_video.frames[frame_index].global_T_frame = (
         self.base_kf_global_T_frame @ base_T_frame)
@@ -340,28 +352,157 @@ class BadSlam:
     self.base_kf_tr_frame.append(base_T_frame)
     self.frame_tr_base_kf.append(se3_np.inverse(base_T_frame))
 
+  def _track_pairwise(self, base_depth, base_normals, base_intensity,
+                      tracked_depth, tracked_normals, tracked_intensity,
+                      est1, est2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Calibrate both depth images, build both pyramids and track
+    coarse-to-fine from two initial base_T_tracked estimates (the compute
+    core of RunOdometry, bad_slam.cc:827-951). Returns (base_T_tracked,
+    residual count), both on the device."""
+    cfg = self.config
+    calib = self.calibration
+    residual_type = "gradient_xy"
+    if cfg.use_gradmag_for_tracking:
+      residual_type = "gradmag"
+      base_intensity = image_proc.sobel_gradient_magnitude(base_intensity)
+      tracked_intensity = image_proc.sobel_gradient_magnitude(
+          tracked_intensity)
+    base_pyr = build_pyramid(
+        depth_model.calibrate_depth_image(calib.a, calib.cfactor, base_depth,
+                                          calib.cell_size),
+        base_normals, base_intensity, cfg.num_scales)
+    tracked_pyr = build_pyramid(
+        depth_model.calibrate_depth_image(calib.a, calib.cfactor,
+                                          tracked_depth, calib.cell_size),
+        tracked_normals, tracked_intensity, cfg.num_scales)
+    return odometry_mod.track_frame_pairwise(
+        base_pyr, tracked_pyr, calib.camera(), calib.baseline_fx,
+        torch.as_tensor(est1, device=self.device),
+        torch.as_tensor(est2, device=self.device),
+        test_different_initial_estimates=True,
+        use_depth_residuals=cfg.use_geometric_residuals,
+        use_descriptor_residuals=cfg.use_photometric_residuals,
+        use_pyramid_level_0=True,
+        convergence_threshold=cfg.odometry_convergence_threshold,
+        residual_type=residual_type)
+
+  def track_keyframe_pair(self, base_slot: int, tracked_slot: int,
+                          base_T_tracked_init: np.ndarray) -> np.ndarray:
+    """Direct multi-scale alignment of two stored keyframes, for the loop
+    closure's refinement (loop_detector.cc:498-548: base = the current
+    keyframe, tracked = the matched keyframe or a neighbour; both sides use
+    the keyframes' filtered depth, calibrated on the fly)."""
+    kf = self.direct_ba.kf
+    base_T_tracked, _ = self._track_pairwise(
+        kf.depth[base_slot], kf.normals[base_slot], kf.intensity[base_slot],
+        kf.depth[tracked_slot], kf.normals[tracked_slot],
+        kf.intensity[tracked_slot], base_T_tracked_init, base_T_tracked_init)
+    return base_T_tracked.cpu().numpy()
+
+  def _tracking_failure_injected(self, frame_index: int) -> bool:
+    """Fault-injection seam: report a tracking failure for this frame (a
+    covered lens or a sensor blackout shows exactly as the gate firing).
+    Test and benchmark harnesses override it; always False in
+    production."""
+    return False
+
   def _add_keyframe_to_ba(self, processed: ProcessedFrame, frame_index: int,
-                          global_T_frame: np.ndarray) -> int:
+                          global_T_frame: np.ndarray,
+                          detection_images: Optional[tuple] = None,
+                          edge_weight: float = 1.0) -> int:
     """AddKeyframeToBA (bad_slam.cc:1120-1158): register the keyframe in the
-    store; the first keyframe creates its surfels unfiltered."""
+    store (the first keyframe creates its surfels unfiltered), then run the
+    loop closing when ``detection_images``, the host copies of its
+    intensity and depth, are given."""
     ba = self.direct_ba
     idx = ba.add_keyframe(
         processed.depth, processed.normals, processed.radius_sq,
         processed.intensity, processed.rgb, global_T_frame, frame_index)
     self.keyframe_frame_indices.append(frame_index)
+    self.keyframe_edge_weight[idx] = edge_weight
     if ba.keyframe_count == 1:
       # bad_slam.cc:1087-1094
       ba.create_surfels_for_keyframe(idx, filter_new_surfels=False)
     elif not self.config.do_surfel_updates:
       ba.create_surfels_for_keyframe(idx, filter_new_surfels=True)
+    if detection_images is not None:
+      self.loop_detector.add_keyframe(idx, *detection_images, self)
     return idx
+
+  def _loop_detection_due(self, frame_index: int) -> bool:
+    """Throttle loop detection to loop_detection_image_frequency
+    (bad_slam_config.h:367-370: by default the keyframe rate, so every
+    keyframe; lower values subsample). The keyframe rate derives from the
+    dataset's frame rate."""
+    if self._dataset_fps is None:
+      self._dataset_fps = self.rgbd_video.fps()
+    freq = self.config.get_loop_detection_image_frequency(self._dataset_fps)
+    kf_freq = self._dataset_fps / max(1, self.config.keyframe_interval)
+    if freq >= kf_freq:
+      return True
+    interval = max(1, int(round(kf_freq / max(freq, 1e-6))))
+    self._loop_detection_counter += 1
+    return self._loop_detection_counter % interval == 0
+
+  def _device_memory_stats(self) -> Optional[Tuple[int, int]]:
+    """(free bytes, total bytes) of the device, or None where it reports
+    none (the CPU). Free is what ``torch.cuda.mem_get_info`` reports plus
+    the blocks the caching allocator holds unused. The watchdog reads
+    memory only through this seam, so tests inject stats here."""
+    if self.device.type != "cuda":
+      return None
+    free, total = torch.cuda.mem_get_info(self.device)
+    cached = (torch.cuda.memory_reserved(self.device)
+              - torch.cuda.memory_allocated(self.device))
+    return free + cached, total
+
+  def _check_memory_pressure(self):
+    """The low-memory watchdog (bad_slam.cc:958-968): merge keyframes when
+    free device memory drops below min_free_gpu_memory_mb plus about one
+    keyframe."""
+    stats = self._device_memory_stats()
+    if not stats:
+      return
+    free, _ = stats
+    if free < (self.config.min_free_gpu_memory_mb * 1024 * 1024
+               + APPROX_KEYFRAME_BYTES):
+      self.request_keyframe_merge()
+
+  def request_keyframe_merge(self):
+    """The memory-pressure keyframe merge, sequential path: the main thread
+    is the map's only writer, so it merges here. Deleted keyframes leave
+    the loop detector's database too."""
+    deleted = self.direct_ba.merge_keyframes(self.loop_detector)
+    self.num_keyframes_merged += deleted
+    if deleted:
+      log.warning(f"low device memory; merged {deleted} keyframe(s)")
 
   def create_keyframe(self, frame_index: int, processed: ProcessedFrame):
     """CreateKeyframe (bad_slam.cc:953-1097)."""
+    self._check_memory_pressure()
     global_T_frame = np.asarray(
         self.rgbd_video.frames[frame_index].global_T_frame)
-    self.base_kf_index = self._add_keyframe_to_ba(processed, frame_index,
-                                                  global_T_frame)
+    # Loop detection is decided here, and the host copies of the images
+    # made here, on the main thread (bad_slam.cc:1016-1023); with parallel
+    # detection the feature extraction and query run ahead on the
+    # detector's thread, each queued image paired 1:1 with the closing
+    # below.
+    detection_images = None
+    if (self.loop_detector is not None
+        and self._loop_detection_due(frame_index)):
+      detection_images = (processed.intensity.cpu().numpy(),
+                          processed.depth.cpu().numpy())
+      if self.loop_detector.parallel:
+        self.loop_detector.queue_for_detection(*detection_images)
+    edge_weight = (WEAK_EDGE_WEIGHT if self._tracking_failed_since_kf
+                   else 1.0)
+    self._tracking_failed_since_kf = False
+
+    self.base_kf_index = self._add_keyframe_to_ba(
+        processed, frame_index, global_T_frame, detection_images, edge_weight)
+    # The pose the keyframe was created at, as in the reference, even where
+    # a loop closure inside just moved it: the next BA's trajectory
+    # deformation refreshes it.
     self.base_kf_global_T_frame = global_T_frame
     self.base_kf_images = processed
 
@@ -384,6 +525,12 @@ class BadSlam:
     if self.direct_ba.keyframe_count >= 2:
       self.num_planned_ba_iterations += (
           self.config.max_num_ba_iterations_per_keyframe)
+
+  def stop_ba_thread_and_wait(self):
+    """StopBAThreadAndWaitForIt (bad_slam.h), sequential path: stop the
+    loop detector's thread. Safe to call more than once."""
+    if self.loop_detector is not None:
+      self.loop_detector.request_exit_and_wait()
 
   # --- bundle adjustment ---
 

@@ -7,9 +7,10 @@ and the map-quality metric. The world is a smooth random heightmap z(x, y)
 about 1 m in front of the camera, with band-limited value-noise texture, so
 depth and photometric residuals agree across views. A second world, a set
 of infinite planes seen from scattered poses, serves the self-calibration
-checks. Everything here is numpy on the host, except the poses, which use
-the port's SE(3) exponential, and the test-keyframe pipeline, which runs the
-port's normal and radius stencils.
+checks and, with checker texture, the loop-closure scenes
+(``make_synthetic_video``). Everything here is numpy on the host, except
+the poses, which use the port's SE(3) exponential, and the test-keyframe
+pipeline, which runs the port's normal and radius stencils.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from PIL import Image
 
 from badslam_tpu_torch.geometry import se3, se3_np
 from badslam_tpu_torch.geometry.camera import PinholeCamera
+from badslam_tpu_torch.io.dataset import Frame, RGBDVideo
 from badslam_tpu_torch.ops import depth_proc
 from badslam_tpu_torch.ops.depth_model import cfactor_shape
 
@@ -145,16 +147,68 @@ def render_planes(camera: PinholeCamera, global_T_frame: np.ndarray,
 
 
 def render_intensity(camera: PinholeCamera, global_T_frame: np.ndarray,
-                     depth: np.ndarray, freq: float = 3.0) -> np.ndarray:
-  """World-anchored intensity: a sum of sines of the 3-D point each pixel
-  sees, so photometric residuals agree across views; on u8 steps."""
+                     depth: np.ndarray, freq: float = 3.0,
+                     kind: str = "sine") -> np.ndarray:
+  """World-anchored intensity of the 3-D point each pixel sees, so
+  photometric residuals agree across views; on u8 steps. ``sine``: a sum of
+  sines; ``checker``: a hash of the 3-D cell, whose sharp corners feature
+  detectors (ORB/FAST) need."""
   R = global_T_frame[:3, :3].astype(np.float64)
   o = global_T_frame[:3, 3].astype(np.float64)
   pts = (_pixel_rays(camera) * depth[..., None]) @ R.T + o
-  v = (0.5 + 0.2 * np.sin(freq * pts[..., 0])
-       + 0.2 * np.sin(freq * pts[..., 1]) + 0.1 * np.sin(freq * pts[..., 2]))
+  if kind == "sine":
+    v = (0.5 + 0.2 * np.sin(freq * pts[..., 0])
+         + 0.2 * np.sin(freq * pts[..., 1])
+         + 0.1 * np.sin(freq * pts[..., 2]))
+  elif kind == "checker":
+    cells = np.floor(freq * pts).astype(np.int64)
+    h = (cells[..., 0] * 73856093 ^ cells[..., 1] * 19349663
+         ^ cells[..., 2] * 83492791) & 0xFF
+    v = 0.25 + 0.5 * (h.astype(np.float32) / 255.0)
+  else:
+    raise ValueError(kind)
   u8 = np.clip(np.floor(255.0 * v + 0.5), 0, 255)
   return u8.astype(np.float32) * np.float32(1.0 / 255.0)
+
+
+def plane_world_normals(count: int = 3, seed: int = 7) -> np.ndarray:
+  """(count, 3) unit normals of random planes facing the camera (z
+  component -1 before normalization), as the loop-closure scenes use."""
+  rng = np.random.default_rng(seed)
+  normals = []
+  for _ in range(count):
+    n = rng.uniform(-1, 1, 3).astype(np.float32)
+    n[2] = -1.0
+    normals.append(n / np.linalg.norm(n))
+  return np.asarray(normals)
+
+
+def make_synthetic_video(camera: PinholeCamera,
+                         trajectory: List[np.ndarray],
+                         plane_normals: np.ndarray, plane_d: float = 2.5,
+                         raw_to_float_depth: float = 1.0 / 5000.0,
+                         fps: float = 30.0, textured: bool = True,
+                         texture_kind: str = "sine") -> RGBDVideo:
+  """In-memory RGBDVideo of the plane world rendered along ``trajectory``
+  (per-frame global_T_frame), with u16 depth at ``raw_to_float_depth`` and
+  grey RGB; every frame's pose starts at the identity, to be estimated."""
+  frames = []
+  for i, T in enumerate(trajectory):
+    depth = render_planes(camera, T, plane_normals, plane_d,
+                          raw_to_float_depth=raw_to_float_depth)
+    if textured:
+      inten = render_intensity(camera, T, depth, kind=texture_kind)
+      u8 = np.clip(np.floor(inten * 255.0 + 0.5), 0, 255).astype(np.uint8)
+      rgb = np.stack([u8, u8, u8], axis=-1)
+    else:
+      rgb = np.zeros(depth.shape + (3,), np.uint8)
+    f = Frame(rgb_path="", depth_path="", rgb_timestamp=i / fps,
+              depth_timestamp=i / fps)
+    f._rgb = rgb
+    f._depth = np.floor(depth / raw_to_float_depth + 0.5).astype(np.uint16)
+    frames.append(f)
+  return RGBDVideo(frames=frames, color_camera=camera, depth_camera=camera,
+                   raw_to_float_depth=raw_to_float_depth)
 
 
 class SyntheticKeyframe(NamedTuple):
@@ -234,6 +288,29 @@ def write_tum_dataset(out_dir: str, trajectory: List[np.ndarray],
   dataset: calibration.txt, associated.txt, groundtruth.txt, rgb/*.png
   (grey as RGB) and depth/*.png (16-bit, depth_scaling * metres)."""
   cam = camera or default_test_camera(width, height)
+
+  def images():
+    for T in trajectory:
+      depth, inten = render_heightmap(cam, T, seed=seed,
+                                      raw_to_float_depth=1.0 / depth_scaling)
+      u8 = np.clip(np.floor(inten * 255.0 + 0.5), 0, 255).astype(np.uint8)
+      yield (np.stack([u8, u8, u8], axis=-1),
+             np.floor(depth * depth_scaling + 0.5).astype(np.uint16))
+  return _write_tum(out_dir, cam, trajectory, images(), fps)
+
+
+def write_tum_video(out_dir: str, video: RGBDVideo,
+                    trajectory: List[np.ndarray], fps: float = 30.0) -> str:
+  """Write an in-memory RGBDVideo (``make_synthetic_video``'s) as a TUM
+  dataset, with ``trajectory`` as groundtruth.txt; the depth PNGs hold the
+  video's raw counts, so load it with ``--depth_scaling``
+  1 / ``video.raw_to_float_depth``."""
+  images = ((f.rgb(), f.depth_raw()) for f in video.frames)
+  return _write_tum(out_dir, video.depth_camera, trajectory, images, fps)
+
+
+def _write_tum(out_dir: str, cam: PinholeCamera, trajectory, images,
+               fps: float) -> str:
   os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
   os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
   with open(os.path.join(out_dir, "calibration.txt"), "w") as f:
@@ -241,14 +318,10 @@ def write_tum_dataset(out_dir: str, trajectory: List[np.ndarray],
     f.write(f"{float(cam.fx)} {float(cam.fy)} "
             f"{float(cam.cx) - 0.5} {float(cam.cy) - 0.5}\n")
   assoc_lines, gt_lines = [], []
-  for i, T in enumerate(trajectory):
-    depth, inten = render_heightmap(cam, T, seed=seed,
-                                    raw_to_float_depth=1.0 / depth_scaling)
-    u8 = np.clip(np.floor(inten * 255.0 + 0.5), 0, 255).astype(np.uint8)
-    Image.fromarray(np.stack([u8, u8, u8], axis=-1)).save(
-        os.path.join(out_dir, f"rgb/{i:06d}.png"))
-    Image.fromarray(np.floor(depth * depth_scaling + 0.5).astype(
-        np.uint16)).save(os.path.join(out_dir, f"depth/{i:06d}.png"))
+  for i, (T, (rgb, depth_u16)) in enumerate(zip(trajectory, images)):
+    Image.fromarray(rgb).save(os.path.join(out_dir, f"rgb/{i:06d}.png"))
+    Image.fromarray(depth_u16).save(
+        os.path.join(out_dir, f"depth/{i:06d}.png"))
     ts = i / fps
     assoc_lines.append(f"{ts:.6f} rgb/{i:06d}.png {ts:.6f} depth/{i:06d}.png")
     q = se3_np.matrix_to_quaternion(T[:3, :3])

@@ -66,7 +66,27 @@ Phases (any failure exits non-zero and prints no result line):
      count, with one kernel launch per restored keyframe and one for the
      odometry's base keyframe; a run that imports the exported calibration
      exports the same three files;
- 14. check that no module of JAX or of the JAX package was imported.
+ 14. loop detection on the CLI: the run of 7 without --no_loop_detection,
+     so the detector's thread runs (6 keyframes cannot reach its
+     recent-exclusion window of 10, so no candidate may come up); check: no
+     loop event, and the trajectory equals 7's bit for bit; print the
+     detector's ms per keyframe, from extraction to result;
+ 15. config2 of benchmarks/run_configs.py at 640x480 through the port's
+     BadSlam: 11 frames of the checker-textured plane world, a keyframe
+     every 2 frames, BA on, 0.06 m and 0.08 m of drift put into keyframes 3
+     and 4, frame 10 revisits frame 0; check: the closure is applied and
+     matched to keyframe 0, and the revisit lies within a quarter of the
+     drift of the truth (config2's gate); print the inliers, the ms of the
+     add_keyframe call that closes the loop and the ms of the pose-graph
+     solve alone (the closure's graph solved again from outside);
+ 16. the BoW-scale blackout (the reference's
+     test_loop_closure_applied_at_bow_scale) at 640x480: 73 frames, BA off,
+     a keyframe every 2 frames, a tracking blackout over frames 40-55;
+     check: the vocabulary is active, a closure is applied, the blackout
+     left weak odometry edges, the last revisit lies within 0.02 m of the
+     truth; print the detector's ms per keyframe and the ms per closing
+     call;
+ 17. check that no module of JAX or of the JAX package was imported.
 
 The next-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA device and no network.
@@ -85,6 +105,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -504,11 +525,15 @@ def ba_iterations_per_call(stream_path: str, label: str) -> list:
   return [per_call[c] for c in sorted(per_call)]
 
 
+def warm_frames_per_s(run: dict) -> float:
+  frame_s = run["stats"]["[BadSlam::ProcessFrame]"].samples
+  return (len(frame_s) - 2) / sum(frame_s[2:])
+
+
 def print_ba_run(run: dict, label: str, iterations: list, phases) -> None:
   stats = run["stats"]
-  frame_s = stats["[BadSlam::ProcessFrame]"].samples
   print(f"{label} warm frames/s (frames 2..{FRAMES - 1}, BA included): "
-        f"{(len(frame_s) - 2) / sum(frame_s[2:])!r}")
+        f"{warm_frames_per_s(run)!r}")
   print_phases(stats, ("Preprocessing", "Odometry", "Keyframe creation")
                + phases,
                {"Preprocessing": 2, "Odometry": 2, "Keyframe creation": 1})
@@ -521,26 +546,38 @@ def print_ba_run(run: dict, label: str, iterations: list, phases) -> None:
         f"bytes")
 
 
-def run_ba_path(workdir: str, data: str, odometry_ate: float) -> dict:
-  """Phase 7: the CLI with sequential BA on, at the reference's defaults."""
-  from badslam_tpu_torch.slam import direct_ba
-
-  label = "BA path"
-  poses_path = os.path.join(workdir, "poses_ba.txt")
-  ply_path = os.path.join(workdir, "map.ply")
-  stream_path = os.path.join(workdir, "ba_iterations.txt")
-  timings_path = os.path.join(workdir, "timings_ba.txt")
-  argv = [data, "--sequential_ba", "--no_loop_detection",
+def ba_path_argv(workdir: str, data: str, tag: str) -> list:
+  """Phase 7's command line (the reference CLI's defaults with sequential BA
+  and without loop detection), exporting into files named by ``tag``."""
+  return [data, "--sequential_ba", "--no_loop_detection",
           "--restrict_fps_to", "0", "--max_depth", "5.0", "--num_scales", "5",
-          "--device_accurate_timings", "--export_poses", poses_path,
-          "--export_point_cloud", ply_path, "--save_timings", stream_path,
-          "--export_final_timings", timings_path]
-  # Recount on the device and check the host mirrors after every BA call.
+          "--device_accurate_timings",
+          "--export_poses", os.path.join(workdir, f"poses_{tag}.txt"),
+          "--export_point_cloud", os.path.join(workdir, f"map_{tag}.ply"),
+          "--save_timings", os.path.join(workdir, f"iterations_{tag}.txt"),
+          "--export_final_timings", os.path.join(workdir,
+                                                 f"timings_{tag}.txt")]
+
+
+def run_verified_cli(argv, label: str) -> dict:
+  """run_cli with the host mirrors recounted on the device and checked after
+  every BA call."""
+  from badslam_tpu_torch.slam import direct_ba
   direct_ba.DEBUG_VERIFY_COUNT = True
   try:
-    run = run_cli(argv, label)
+    return run_cli(argv, label)
   finally:
     direct_ba.DEBUG_VERIFY_COUNT = False
+
+
+def run_ba_path(workdir: str, data: str, odometry_ate: float) -> dict:
+  """Phase 7: the CLI with sequential BA on, at the reference's defaults."""
+  label = "BA path"
+  poses_path = os.path.join(workdir, "poses_ba.txt")
+  ply_path = os.path.join(workdir, "map_ba.ply")
+  stream_path = os.path.join(workdir, "iterations_ba.txt")
+  timings_path = os.path.join(workdir, "timings_ba.txt")
+  run = run_verified_cli(ba_path_argv(workdir, data, "ba"), label)
   checked = check_map_run(run, label, data, poses_path, ply_path,
                           KEYFRAME_INTERVAL_BA)
   print(f"{label} ATE RMSE {checked['ate']!r} m over {FRAMES} frames (gate "
@@ -560,7 +597,7 @@ def run_ba_path(workdir: str, data: str, odometry_ate: float) -> dict:
         f"calls")
   with open(timings_path) as f:
     print(f.read().rstrip())
-  return {"launches": run["launches"]}
+  return {"launches": run["launches"], "frames_per_s": warm_frames_per_s(run)}
 
 
 def check_ba_determinism(data: str, device) -> None:
@@ -901,6 +938,273 @@ def check_round_trip(workdir: str, data: str, saved: dict) -> int:
   return restored
 
 
+@contextlib.contextmanager
+def detector_timing():
+  """Records, per keyframe, the ms from the start of the loop detector's
+  feature extraction to the end of its database query (on whichever thread
+  runs them), and per add_keyframe call its ms and its event."""
+  from badslam_tpu_torch.loop import detector as det_mod
+  cls = det_mod.LoopDetector
+  extract, detect, add = cls._extract, cls._detect, cls.add_keyframe
+  record = {"detect_ms": [], "add": []}
+  started = {}
+
+  def timed_extract(self, *args):
+    started[threading.get_ident()] = time.perf_counter()
+    return extract(self, *args)
+
+  def timed_detect(self, entry):
+    out = detect(self, entry)
+    t0 = started.pop(threading.get_ident(), None)
+    if t0 is not None:
+      record["detect_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+  def timed_add(self, *args):
+    t0 = time.perf_counter()
+    event = add(self, *args)
+    record["add"].append(((time.perf_counter() - t0) * 1e3, event))
+    return event
+
+  cls._extract, cls._detect, cls.add_keyframe = (timed_extract, timed_detect,
+                                                  timed_add)
+  try:
+    yield record
+  finally:
+    cls._extract, cls._detect, cls.add_keyframe = extract, detect, add
+
+
+def run_loop_detection_cli(workdir: str, data: str, ba_path: dict) -> dict:
+  """Phase 14: phase 7's command line without --no_loop_detection, so the
+  detector runs on its thread."""
+  label = "loop detection path"
+  poses_path = os.path.join(workdir, "poses_loop.txt")
+  argv = ba_path_argv(workdir, data, "loop")
+  argv.remove("--no_loop_detection")
+  with detector_timing() as timing:
+    run = run_verified_cli(argv, label)
+  slam = run["slam"]
+  detector = slam.loop_detector
+  if detector is None or not detector.parallel:
+    fail(f"{label}: no loop detector with a thread")
+  if detector._detection_thread is not None:
+    fail(f"{label}: the detection thread outlived the run")
+  found = re.findall(r"Loops closed: (\d+), ignored: (\d+)", run["stdout"])
+  if found != [("0", "0")] or detector.events:
+    fail(f"{label}: loop events {detector.events}, line {found}")
+  with open(poses_path) as f, open(os.path.join(workdir, "poses_ba.txt")) \
+      as g:
+    if f.read() != g.read():
+      fail(f"{label}: the trajectory differs from the run without loop "
+           f"detection")
+  ms = timing["detect_ms"]
+  if len(ms) != len(detector.entries) or not ms:
+    fail(f"{label}: {len(ms)} timed detections for "
+         f"{len(detector.entries)} entries")
+  print(f"{label}: {len(ms)} keyframes through the detection thread, "
+        f"extraction to result {statistics.mean(ms)!r} ms per keyframe "
+        f"(each {ms}); no loop event; trajectory equal to the run without "
+        f"loop detection, byte for byte")
+  print(f"{label} warm frames/s (frames 2..{FRAMES - 1}, BA included): "
+        f"{warm_frames_per_s(run)!r}; the run without loop detection "
+        f"{ba_path['frames_per_s']!r}")
+  print_phases(run["stats"], ("Keyframe creation", "Bundle adjustment"),
+               {"Keyframe creation": 1})
+  return {"launches": run["launches"], "detect_ms": ms}
+
+
+def checker_plane_video(trajectory, width: int = 640, height: int = 480):
+  from badslam_tpu_torch.utils import synthetic
+  cam = synthetic.default_test_camera(width, height)
+  t0 = time.perf_counter()
+  video = synthetic.make_synthetic_video(
+      cam, trajectory, synthetic.plane_world_normals(),
+      texture_kind="checker")
+  print(f"rendered {len(trajectory)} frames of the checker plane world at "
+        f"{width}x{height} in {time.perf_counter() - t0:.1f} s", flush=True)
+  return cam, video
+
+
+def twist_trajectory(n: int, step) -> list:
+  import torch
+  from badslam_tpu_torch.geometry import se3
+  step = np.asarray(step, np.float32)
+  return [se3.exp(torch.from_numpy(i * step)).numpy() for i in range(n)]
+
+
+LOOP_SCENE = dict(
+    keyframe_interval=2, num_scales=3, max_depth=5.0,
+    sparse_surfel_cell_size=2,
+    min_observation_count_while_bootstrapping_1=1,
+    min_observation_count_while_bootstrapping_2=1, min_observation_count=1,
+    initial_keyframe_capacity=8, initial_surfel_capacity=1 << 14,
+    parallel_ba=False)
+
+
+def check_config2(device) -> dict:
+  """Phase 15: config2's drifted-map closure at 640x480."""
+  import torch
+  from badslam_tpu_torch.config import BadSlamConfig
+  from badslam_tpu_torch.loop import detector as det_mod
+  from badslam_tpu_torch.ops import fused_preprocess as fp
+  from badslam_tpu_torch.slam.system import BadSlam
+  label = "config2 closure"
+  traj = twist_trajectory(10, [0.003, 0.001, 0, 0.0008, 0, 0])
+  traj.append(traj[0].copy())
+  cam, video = checker_plane_video(traj)
+  cfg = BadSlamConfig(**LOOP_SCENE)
+  graphs = []
+  optimizer_cls = det_mod.PoseGraphOptimizer
+
+  class RecordingGraph(optimizer_cls):
+    def optimize(self, num_iterations: int = 20):
+      graphs.append(self)
+      return super().optimize(num_iterations)
+
+  det_mod.PoseGraphOptimizer = RecordingGraph
+  try:
+    detector = det_mod.LoopDetector(cfg, cam, recent_exclude=2)
+    slam = BadSlam(cfg, video, device=device, loop_detector=detector)
+    fp.fused_depth_preprocess.launches = 0
+    with detector_timing() as timing:
+      for i in range(10):
+        slam.process_frame(i)
+      poses = slam.direct_ba.kf.global_T_frame.cpu().numpy().copy()
+      drift = 0.08
+      for s_, d in ((3, 0.06), (4, drift)):
+        poses[s_][0, 3] += d
+      slam.direct_ba.kf = slam.direct_ba.kf._replace(
+          global_T_frame=torch.from_numpy(poses).to(device))
+      slam.base_kf_global_T_frame = poses[4]
+      slam.process_frame(10, force_keyframe=True)
+      torch.cuda.synchronize()
+    launches = fp.fused_depth_preprocess.launches
+  finally:
+    det_mod.PoseGraphOptimizer = optimizer_cls
+  if launches != len(traj):
+    fail(f"{label}: fused_depth_preprocess launched {launches} times, "
+         f"expected {len(traj)}")
+  event = detector.events[-1] if detector.events else None
+  err = float(np.linalg.norm(video.frames[10].global_T_frame[:3, 3]
+                             - traj[10][:3, 3]))
+  print(f"{label}: events {detector.events}; revisit error {err!r} m "
+        f"(gate {0.25 * drift} m, a quarter of the {drift} m drift)")
+  if not (event and event.applied and event.matched_slot == 0
+          and err < 0.25 * drift):
+    fail(f"{label}: not closed onto keyframe 0 within the gate")
+  close_ms = [ms for ms, ev in timing["add"] if ev is event][0]
+  graph = graphs[-1]
+  times = []
+  for _ in range(5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.optimize()
+    times.append((time.perf_counter() - t0) * 1e3)
+  profile = profile_device(graph.optimize)
+  print(f"{label}: {event.inlier_count} RANSAC inliers; the closing "
+        f"add_keyframe call {close_ms!r} ms; the pose-graph solve alone "
+        f"({len(graph.T0)} vertices, {len(graph.edges_i)} edges, 20 LM "
+        f"steps) {statistics.median(times)!r} ms, median of 5 (each "
+        f"{times}); detector, extraction to result "
+        f"{statistics.mean(timing['detect_ms'])!r} ms per keyframe")
+  print(f"{label}: one pose-graph solve under torch.profiler: "
+        f"{profile['launches']} kernel launches ({profile['launches'] / 20!r}"
+        f" per LM step), {profile['syncs']} synchronizing calls, device busy "
+        f"{profile['busy_ms']!r} ms of {profile['wall_ms']!r} ms")
+  return {"launches": launches}
+
+
+def profile_device(fn) -> dict:
+  """Kernel launches (host cu*LaunchKernel* calls), synchronizing CUDA
+  calls and device-busy ms (the union of the device's kernel, copy and set
+  intervals) of one call of ``fn`` under torch.profiler."""
+  import torch
+  fn()
+  torch.cuda.synchronize()
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  t0 = time.perf_counter()
+  with torch.profiler.profile(activities=activities) as prof:
+    fn()
+    torch.cuda.synchronize()
+  wall_ms = (time.perf_counter() - t0) * 1e3
+  events = prof.events()
+  launches = sum(1 for e in events
+                 if "LaunchKernel" in e.name and e.name.startswith("cu"))
+  syncs = sum(1 for e in events
+              if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                            "cudaMemcpy", "cudaEventSynchronize"))
+  spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+  busy, end = 0.0, float("-inf")
+  for s_, e_ in spans:
+    if e_ > end:
+      busy += e_ - max(s_, end)
+      end = e_
+  return {"launches": launches, "syncs": syncs, "busy_ms": busy / 1e3,
+          "wall_ms": wall_ms}
+
+
+def check_bow_blackout(device) -> dict:
+  """Phase 16: the BoW-scale blackout at 640x480."""
+  import torch
+  from badslam_tpu_torch.config import BadSlamConfig
+  from badslam_tpu_torch.geometry import se3
+  from badslam_tpu_torch.loop.detector import LoopDetector
+  from badslam_tpu_torch.ops import fused_preprocess as fp
+  from badslam_tpu_torch.slam.system import WEAK_EDGE_WEIGHT, BadSlam
+  label = "BoW-scale blackout"
+  away = 70
+  traj = twist_trajectory(away, [0.0022, 0.0008, 0, 0.0006, 0, 0])
+  near0 = se3.exp(torch.tensor([0.004, 0.001, 0, 0, 0, 0])).numpy() @ traj[0]
+  traj += [near0, near0, traj[0].copy()]
+  cam, video = checker_plane_video(traj)
+  cfg = BadSlamConfig(**dict(LOOP_SCENE,
+                             max_num_ba_iterations_per_keyframe=0))
+
+  class BlackoutSlam(BadSlam):
+    def _tracking_failure_injected(self, frame_index):
+      return 40 <= frame_index < 56
+
+  detector = LoopDetector(cfg, cam)
+  slam = BlackoutSlam(cfg, video, device=device, loop_detector=detector)
+  fp.fused_depth_preprocess.launches = 0
+  t0 = time.perf_counter()
+  with detector_timing() as timing:
+    for i in range(away + 3):
+      slam.process_frame(i, force_keyframe=(i in (away, away + 2)))
+    torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = fp.fused_depth_preprocess.launches
+  if launches != len(traj):
+    fail(f"{label}: fused_depth_preprocess launched {launches} times, "
+         f"expected {len(traj)}")
+  applied = [e for e in detector.events if e.applied]
+  weak = sorted(s for s, w in slam.keyframe_edge_weight.items()
+                if w == WEAK_EDGE_WEIGHT)
+  err = float(np.linalg.norm(video.frames[away + 2].global_T_frame[:3, 3]
+                             - traj[-1][:3, 3]))
+  print(f"{label}: {slam.direct_ba.keyframe_count} keyframes in "
+        f"{seconds:.1f} s; vocabulary "
+        f"{'active' if detector.vocab is not None else 'NOT active'}"
+        f" ({detector.vocab.num_words if detector.vocab else 0} words); "
+        f"{len(applied)} closures applied, {detector.num_loops_ignored} "
+        f"ignored; weak edges into keyframes {weak}; revisit error {err!r} m "
+        f"(gate 0.02 m)")
+  print(f"{label}: events "
+        f"{[(e.current_slot, e.matched_slot, e.inlier_count, e.reason) for e in detector.events]}")
+  if not (detector.vocab is not None and applied and weak and err < 0.02):
+    fail(f"{label}: gates not met")
+  closing = [ms for ms, ev in timing["add"] if ev is not None and ev.applied]
+  other = [ms for ms, ev in timing["add"] if ev is None]
+  print(f"{label}: detector, extraction to result "
+        f"{statistics.mean(timing['detect_ms'])!r} ms per keyframe (max "
+        f"{max(timing['detect_ms'])!r}); add_keyframe "
+        f"{statistics.mean(closing)!r} ms per applied closure, "
+        f"{statistics.mean(other)!r} ms where no candidate came up")
+  return {"launches": launches, "frames": len(traj)}
+
+
 def main() -> int:
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -921,8 +1225,10 @@ def main() -> int:
   if smi.returncode != 0:
     fail(f"nvidia-smi: {smi.stderr.strip()}")
   card = smi.stdout.strip().splitlines()[0]
+  import cv2
   print(f"device: {name}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}; python {sys.version.split()[0]}")
+        f"{torch.version.cuda}; python {sys.version.split()[0]}; cv2 "
+        f"{cv2.__version__}")
   print(card, flush=True)
 
   t0 = time.perf_counter()
@@ -944,10 +1250,17 @@ def main() -> int:
     self_calibration = run_self_calibration_path(workdir, data, use_pcg=False)
     joint = run_self_calibration_path(workdir, data, use_pcg=True)
     restored = check_round_trip(workdir, data, self_calibration)
+    loop_cli = run_loop_detection_cli(workdir, data, ba_path)
+  config2 = check_config2(device)
+  blackout = check_bow_blackout(device)
   # The kernel's launches on the main paths: one per frame of each of the
-  # four CLI runs, and the restored keyframes of the state round trip.
+  # five CLI runs and of the two loop scenes, and the restored keyframes of
+  # the state round trip.
   launches = (path["launches"] + ba_path["launches"]
-              + self_calibration["launches"] + joint["launches"] + restored)
+              + self_calibration["launches"] + joint["launches"] + restored
+              + loop_cli["launches"] + config2["launches"]
+              + blackout["launches"])
+  frames = 5 * FRAMES + 11 + blackout["frames"]
   kernel["max_abs_err"] = max(kernel["max_abs_err"],
                               self_calibration["max_abs_err"])
   foreign = sorted(m for m in sys.modules
@@ -960,7 +1273,7 @@ def main() -> int:
       "source": "badslam_tpu_torch/csrc/fused_preprocess.cu",
       "replaces": "badslam_tpu/ops/pallas_preprocess.py:76",
       "launches": launches,
-      "launches_per_frame": (launches - restored) / (4 * FRAMES),
+      "launches_per_frame": (launches - restored) / frames,
       "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
       "call_ms": kernel["call_ms"], "plain_ms": kernel["plain_ms"],
       "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],

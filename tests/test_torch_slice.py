@@ -275,7 +275,7 @@ def test_cli_ba_options_run(dataset, tmp_path, flags, map_gate):
 
 
 @pytest.mark.parametrize("flags", [
-    [],  # the defaults run loop detection, parallel BA and BA iterations
+    [],  # the defaults run parallel BA, which is refused
     ["--export_reconstruction", "x"],
     ["--render_preview", "x"],
     ["--mesh_devices", "2"],
@@ -329,7 +329,10 @@ def test_port_imports_no_jax():
           ".loop.trajectory_deformation, badslam_tpu_torch.io.ply, "
           "badslam_tpu_torch.io.state, badslam_tpu_torch.models.pcg, "
           "badslam_tpu_torch.models.intrinsics_opt, "
-          "badslam_tpu_torch.ops.segment; "
+          "badslam_tpu_torch.ops.segment, badslam_tpu_torch.loop.detector, "
+          "badslam_tpu_torch.loop.bow, badslam_tpu_torch.loop.ransac, "
+          "badslam_tpu_torch.loop.pose_graph, "
+          "badslam_tpu_torch.loop.device_closure; "
           "bad = [m for m in sys.modules if m.split('.')[0] in "
           "('jax', 'badslam_tpu')]; assert not bad, bad")
   env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
