@@ -4,15 +4,23 @@ Port of ``badslam_tpu/io/dataset.py`` without JAX: the same directory
 layout (calibration.txt "fx fy cx cy" in the center convention,
 associated.txt, depth/*.png 16-bit, rgb/*.png 8-bit, optional
 groundtruth.txt), lazy per-frame image loading and a per-frame
-``global_T_frame``. PNGs are decoded with Pillow. The native prefetching
-loader of the reference is not ported yet (ROADMAP).
+``global_T_frame``. PNGs are decoded with Pillow.
+
+``RGBDVideo.enable_prefetch`` takes the place of the reference's native
+prefetching loader (PreLoadThread, main.cc:569): a small pool of threads
+decodes the PNGs of the next frames while the frame loop works on the
+current one (Pillow and zlib release the GIL while they decode). With
+``pin_memory`` the decoded images also land in page-locked host memory, so
+that the system copies them to the device without blocking the host.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import os
-from typing import List, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from PIL import Image
@@ -26,6 +34,17 @@ def _load_image(path: str) -> np.ndarray:
     return np.asarray(im)
 
 
+def _decode_rgb(path: str) -> np.ndarray:
+  img = _load_image(path)
+  if img.ndim == 2:
+    img = np.stack([img] * 3, axis=-1)
+  return img[..., :3].astype(np.uint8)
+
+
+def _decode_depth(path: str) -> np.ndarray:
+  return _load_image(path).astype(np.uint16)
+
+
 @dataclasses.dataclass
 class Frame:
   """One RGB-D frame: lazy image access + pose."""
@@ -37,24 +56,101 @@ class Frame:
       default_factory=lambda: np.eye(4, dtype=np.float32))
   _rgb: Optional[np.ndarray] = None
   _depth: Optional[np.ndarray] = None
+  # Set by RGBDVideo.enable_prefetch: the prefetcher and this frame's index.
+  _prefetcher: Optional["FramePrefetcher"] = dataclasses.field(
+      default=None, repr=False, compare=False)
+  _index: int = dataclasses.field(default=-1, repr=False, compare=False)
+  # Page-locked (u8 RGB, depth as int16 bits) copies of the two images.
+  _pinned: Optional[tuple] = dataclasses.field(
+      default=None, repr=False, compare=False)
+
+  def _fetch(self):
+    if self._prefetcher is not None:
+      self._rgb, self._depth, self._pinned = self._prefetcher.get(self._index)
 
   def rgb(self) -> np.ndarray:
     if self._rgb is None:
-      img = _load_image(self.rgb_path)
-      if img.ndim == 2:
-        img = np.stack([img] * 3, axis=-1)
-      self._rgb = img[..., :3].astype(np.uint8)
+      self._fetch()
+    if self._rgb is None:
+      self._rgb = _decode_rgb(self.rgb_path)
     return self._rgb
 
   def depth_raw(self) -> np.ndarray:
     """Raw u16 depth image."""
     if self._depth is None:
-      self._depth = _load_image(self.depth_path).astype(np.uint16)
+      self._fetch()
+    if self._depth is None:
+      self._depth = _decode_depth(self.depth_path)
     return self._depth
+
+  def pinned(self) -> Optional[tuple]:
+    """The frame's images as page-locked tensors (u8 RGB (H, W, 3), u16
+    depth as int16 bits (H, W)) where a prefetcher with ``pin_memory``
+    decoded it, else None."""
+    if self._rgb is None and self._depth is None:
+      self._fetch()
+    return self._pinned
 
   def clear_cache(self):
     self._rgb = None
     self._depth = None
+    self._pinned = None
+
+
+# The prefetcher decodes up to this many frames ahead, on this many threads.
+PREFETCH_AHEAD = 4
+PREFETCH_WORKERS = 2
+
+
+class FramePrefetcher:
+  """Decodes frames on a thread pool ahead of their use: a request for
+  frame i returns its images and starts the decode of frames i+1 ..
+  i+PREFETCH_AHEAD; a decode that is no longer in that window is
+  dropped."""
+
+  def __init__(self, frames: List[Frame], pin_memory: bool):
+    self._frames = frames
+    self._pin_memory = pin_memory
+    self._pool = concurrent.futures.ThreadPoolExecutor(
+        PREFETCH_WORKERS, thread_name_prefix="frame_prefetch")
+    self._pending: Dict[int, concurrent.futures.Future] = {}
+    self._lock = threading.Lock()
+
+  def _decode(self, index: int):
+    frame = self._frames[index]
+    rgb = _decode_rgb(frame.rgb_path)
+    depth = _decode_depth(frame.depth_path)
+    pinned = None
+    if self._pin_memory:
+      import torch
+      pinned = (torch.from_numpy(rgb).pin_memory(),
+                torch.from_numpy(depth.view(np.int16)).pin_memory())
+    return rgb, depth, pinned
+
+  def get(self, index: int):
+    """(rgb, depth, pinned or None) of frame ``index``."""
+    with self._lock:
+      window = range(index,
+                     min(index + PREFETCH_AHEAD + 1, len(self._frames)))
+      for i in list(self._pending):
+        if i not in window:
+          self._pending.pop(i).cancel()
+      for i in window:
+        if i not in self._pending:
+          self._pending[i] = self._pool.submit(self._decode, i)
+      future = self._pending.pop(index)
+    return future.result()
+
+  def close(self):
+    """Stop the worker threads; frames decode on demand again."""
+    with self._lock:
+      for future in self._pending.values():
+        future.cancel()
+      self._pending.clear()
+    self._pool.shutdown(wait=True)
+    for frame in self._frames:
+      if frame._prefetcher is self:
+        frame._prefetcher = None
 
 
 @dataclasses.dataclass
@@ -64,9 +160,31 @@ class RGBDVideo:
   color_camera: PinholeCamera
   depth_camera: PinholeCamera
   raw_to_float_depth: float = 1.0 / 5000.0
+  _prefetcher: Optional[FramePrefetcher] = dataclasses.field(
+      default=None, repr=False, compare=False)
 
   def frame_count(self) -> int:
     return len(self.frames)
+
+  def enable_prefetch(self, pin_memory: bool = False) -> bool:
+    """Decode the frames' PNGs on a thread pool before the frame loop needs
+    them (``FramePrefetcher``); with ``pin_memory`` into page-locked
+    memory too, for copies to a GPU. False (and nothing changes) where the
+    frames are not PNG files on disk."""
+    if not all(f.depth_path.lower().endswith(".png")
+               and f.rgb_path.lower().endswith(".png") for f in self.frames):
+      return False
+    self.close_prefetch()
+    self._prefetcher = FramePrefetcher(self.frames, pin_memory)
+    for i, f in enumerate(self.frames):
+      f._prefetcher, f._index = self._prefetcher, i
+    return True
+
+  def close_prefetch(self):
+    """Stop the prefetcher's threads, if any."""
+    if self._prefetcher is not None:
+      self._prefetcher.close()
+      self._prefetcher = None
 
   def fps(self, default: float = 30.0) -> float:
     """Frame rate from the depth timestamps (the median positive

@@ -43,7 +43,10 @@ def _set(dst: torch.Tensor, values) -> None:
 
 
 def save_state(path: str, slam) -> None:
-  """Snapshot the full SLAM state of a BadSlam system to one .npz file."""
+  """Snapshot the full SLAM state of a BadSlam system to one .npz file.
+  Under parallel BA the BA thread is first left idle with every queued
+  keyframe registered (``BadSlam.quiesce``)."""
+  slam.quiesce()
   ba = slam.direct_ba
   calib = ba.calibration
   kf = {name: t.cpu().numpy() for name, t in ba.kf._asdict().items()

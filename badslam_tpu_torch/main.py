@@ -1,24 +1,29 @@
-"""CLI entry point: offline TUM-dataset runs, sequential BA (alternating
-or, with ``--use_pcg``, joint), self-calibration with
-``--optimize_intrinsics``, loop closure, calibration and state files.
+"""CLI entry point: offline TUM-dataset runs with BA on its own thread
+(the default) or sequential (``--sequential_ba``; alternating or, with
+``--use_pcg``, joint), self-calibration with ``--optimize_intrinsics``, loop
+closure, calibration and state files, and the dense reconstruction export.
 
 The flags are the reference CLI's (this module keeps its own copy of the
 parser of ``badslam_tpu/main.py``; ``tests/test_torch_config.py`` holds the
 two against each other), plus ``--device {cuda,cpu}``. A command line runs
 unchanged on either package. The run computes on the CUDA device unless
 ``--device cpu`` asks otherwise, and fails where no CUDA device is visible.
-The port runs the sequential path, with loop detection on its own thread
-unless ``--sequential_loop_detection`` or ``--no_loop_detection`` is given:
+With no flag, BA runs on its thread and loop detection on another:
 
-  python -m badslam_tpu_torch.main <dataset_dir> --sequential_ba \\
-      [--sequential_loop_detection] [--loop_detection_image_frequency F] \\
-      [--optimize_intrinsics] [--use_pcg] \\
+  python -m badslam_tpu_torch.main <dataset_dir> \\
+      [--sequential_ba] [--sequential_loop_detection | --no_loop_detection] \\
+      [--optimize_intrinsics] [--use_pcg] [--no_pose_estimation] \\
+      [--pyramid_level_for_depth L] [--pyramid_level_for_color L] \\
+      [--median_filter_and_densify_iterations N] \\
       [--export_poses out.txt] [--export_point_cloud map.ply] \\
+      [--export_reconstruction dense.ply] \\
       [--export_calibration base] [--import_calibration base] \\
       [--save_state state.npz] [--load_state state.npz] ...
 
-``--no_active_kf_window`` is accepted and changes nothing: the port's BA
-phases loop over the keyframes that take part, so there is no window.
+Frames are decoded by a prefetching thread pool ahead of the frame loop
+(into page-locked memory on the GPU). ``--no_active_kf_window`` is accepted
+and changes nothing: the port's BA phases loop over the keyframes that take
+part, so there is no window.
 
 Flags whose work is not ported yet are refused (SystemExit), each naming
 the ROADMAP item that will port it; none is ignored silently.
@@ -35,7 +40,7 @@ from badslam_tpu_torch.config import BadSlamConfig
 
 def build_parser() -> argparse.ArgumentParser:
   p = argparse.ArgumentParser(
-      description="BAD SLAM (PyTorch/CUDA port, sequential BA)")
+      description="BAD SLAM (PyTorch/CUDA port)")
   p.add_argument("dataset", help="TUM-format dataset directory "
                  "(calibration.txt + associated.txt)")
   p.add_argument("trajectory", nargs="?", default=None,
@@ -234,13 +239,11 @@ def config_from_args(args) -> BadSlamConfig:
 
 
 def _refuse_unported_flags(args) -> None:
-  """CLI-only flags outside the slice (the configuration's own fields are
+  """CLI-only flags outside the port (the configuration's own fields are
   checked by BadSlam)."""
   from badslam_tpu_torch.slam.direct_ba import unported
-  item5 = 'item 5 "Sequential system and CLI"'
   refusals = [
       (args.mesh_devices > 1, "--mesh_devices", 'item 11 "Distribution"'),
-      (args.export_reconstruction, "--export_reconstruction", item5),
       (args.render_preview, "--render_preview",
        'item 9 "The rest of the library"'),
       (args.profile_dir, "--profile_dir",
@@ -276,11 +279,18 @@ def run(args) -> int:
     log.info(f"Loaded {video.frame_count()} frames from {args.dataset} "
              f"({video.depth_camera.width}x{video.depth_camera.height}), "
              f"device {slam.device}")
+  # The PreLoadThread of the reference (main.cc:569): PNG decoding ahead of
+  # the frame loop.
+  if video.enable_prefetch(pin_memory=slam.device.type == "cuda"):
+    log.debug("decoding frames on a prefetching thread pool")
   try:
     return _run_slam(args, config, video, slam)
   finally:
-    # A failing run must not hang on the loop detector's thread.
-    slam.stop_ba_thread_and_wait()
+    # A failing run must not hang on the BA or loop detector's thread.
+    try:
+      slam.stop_ba_thread_and_wait()
+    finally:
+      video.close_prefetch()
 
 
 def _run_slam(args, config, video, slam) -> int:
@@ -309,11 +319,15 @@ def _run_slam(args, config, video, slam) -> int:
     frames_done += 1
     if not args.quiet and frames_done % 50 == 0:
       elapsed = time.perf_counter() - t_start
+      # The surfel count is a device read of the map: under parallel BA it
+      # belongs to the BA thread, so it waits for the end of the run.
+      surfels = "n/a" if slam._parallel else slam.direct_ba.surfel_count
       print(f"frame {frame_index}: {frames_done / elapsed:.1f} FPS, "
             f"{slam.direct_ba.keyframe_count} keyframes, "
-            f"{slam.direct_ba.surfel_count} surfels")
+            f"{surfels} surfels")
 
-  # Stop the loop detector's thread before the final BA (main.cc:723).
+  # Stop the BA and the loop detector's threads before the final BA
+  # (main.cc:723).
   slam.stop_ba_thread_and_wait()
 
   # Final BA (main.cc:724-770): windowed geometry-only passes, then global.
@@ -362,10 +376,61 @@ def _run_slam(args, config, video, slam) -> int:
     Timing.export_file(args.export_final_timings)
   if args.save_state:
     state_io.save_state(args.save_state, slam)
+  if args.export_reconstruction:
+    export_reconstruction(slam, args.export_reconstruction,
+                          args.reconstruction_sparsification,
+                          quiet=args.quiet)
   if slam.direct_ba.timings_stream is not None:
     slam.direct_ba.timings_stream.close()
     slam.direct_ba.timings_stream = None
   return 0
+
+
+def export_reconstruction(slam, path: str, reconstruction_cell_size: int,
+                          quiet: bool = False) -> None:
+  """The high-resolution surfel reconstruction (main.cc:796-855): resample
+  the cfactor grid to the reconstruction cell size, run windowed
+  geometry-only BA without descriptor residuals, so that surfels densify at
+  the finer cell size, and export the cloud as PLY; the densified map is
+  kept, as in the reference.
+
+  The new grid has another shape, so it cannot be written into the shared
+  calibration in place: the back-end reads a new ``DepthCalibration`` (the
+  resampled grid and the new cell size, copies of the intrinsics, a and
+  baseline) during the export, and gets its original object back after it.
+  The front-end never reads the new one: it runs before the export."""
+  from badslam_tpu_torch.io import ply
+  from badslam_tpu_torch.models.calibration import DepthCalibration
+  from badslam_tpu_torch.ops import depth_model
+
+  ba = slam.direct_ba
+  original = ba.calibration
+  old_desc = ba.use_descriptor_residuals
+  w, h = original.depth_size
+  shape = depth_model.cfactor_shape(h, w, reconstruction_cell_size)
+  ba.calibration = DepthCalibration(
+      original.depth_intr.clone(), original.a.clone(),
+      depth_model.resize_cfactor(original.cfactor, shape),
+      original.baseline_fx.clone(), reconstruction_cell_size, (w, h))
+  ba.use_descriptor_residuals = False
+  try:
+    # Sliding-window geometry-only BA (main.cc:819-843): the active window
+    # bounds the surfels created per step.
+    window = 16
+    for window_start in range(0, max(ba.keyframe_count, 1), window // 2):
+      ba.bundle_adjustment(
+          do_surfel_updates=True, optimize_poses=False,
+          optimize_geometry=True, min_iterations=5, max_iterations=10,
+          active_keyframe_window_start=window_start,
+          active_keyframe_window_end=window_start + window - 1)
+      if not quiet:
+        print(f"reconstruction window {window_start}: "
+              f"{ba.surfel_count} surfels")
+    pos, nrm, col = ba.export_point_cloud()
+    ply.save_point_cloud_ply(path, pos, nrm, col)
+  finally:
+    ba.calibration = original
+    ba.use_descriptor_residuals = old_desc
 
 
 def main(argv=None) -> int:

@@ -53,10 +53,10 @@ class DepthCalibration(nn.Module):
   @classmethod
   def from_numpy(cls, depth_intr, a, cfactor, baseline_fx, cell_size: int,
                  depth_size: Tuple[int, int],
-                 device=None) -> "DepthCalibration":
+                 device) -> "DepthCalibration":
     """From host arrays, e.g. the reference's ``DirectBA`` state
     (``np.asarray(ba.depth_intr)``, ``ba.a``, ``ba.cfactor``,
-    ``ba.baseline_fx``)."""
+    ``ba.baseline_fx``), on ``device``: the caller always names it."""
     def t(v):
       return torch.from_numpy(np.array(v, np.float32)).to(device)
     return cls(t(depth_intr), t(a), t(cfactor), t(baseline_fx), cell_size,
@@ -65,7 +65,7 @@ class DepthCalibration(nn.Module):
   @classmethod
   def initial(cls, camera: PinholeCamera, cell_size: int,
               depth_deformation_a: float, baseline_fx: float,
-              device=None) -> "DepthCalibration":
+              device) -> "DepthCalibration":
     """The state a new map starts from (DirectBA.__init__): the camera's
     intrinsics, zero cfactor."""
     hc, wc = cfactor_shape(camera.height, camera.width, cell_size)

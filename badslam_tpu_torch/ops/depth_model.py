@@ -8,7 +8,10 @@ invalid.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
 
 
 def calibrate_depth(a, cfactor: torch.Tensor,
@@ -23,6 +26,17 @@ def calibrate_depth(a, cfactor: torch.Tensor,
 def cfactor_shape(height: int, width: int, cell: int) -> tuple:
   """cfactor grid dimensions: ceil(size / cell)."""
   return (-(-height // cell), -(-width // cell))
+
+
+def resize_cfactor(cfactor: torch.Tensor, shape: Tuple[int, int]
+                   ) -> torch.Tensor:
+  """The cfactor grid resampled to ``shape`` (UpscaleBufferBilinearly,
+  main.cc:806-812) as ``jax.image.resize(..., "bilinear")`` does it:
+  half-pixel centres, and a triangle filter widened by the scale when the
+  grid shrinks (antialiased)."""
+  return F.interpolate(cfactor[None, None], size=tuple(shape),
+                       mode="bilinear", align_corners=False,
+                       antialias=True)[0, 0]
 
 
 def cfactor_image(cfactor: torch.Tensor, height: int, width: int,

@@ -1,13 +1,16 @@
-"""Depth-image preprocessing: bilateral filter + cutoff, normals, radii.
+"""Depth-image preprocessing: bilateral filter + cutoff, normals, radii,
+and the optional input filters (the median filter and densification, the
+pyramid-level downscales of depth and color).
 
 Port of ``badslam_tpu/ops/depth_proc.py`` (cuda_depth_processing.cu:42,
-:134, :331 of the original BAD SLAM). Depth is float32 metres with <= 0
-meaning invalid. Each stencil is a sum of statically shifted views of a
-zero-padded image; pixels outside the image read as 0, i.e. invalid.
+:134, :331 and preprocessing.cc:40-85 of the original BAD SLAM). Depth is
+float32 metres with <= 0 meaning invalid. Each stencil is a sum of
+statically shifted views of a zero-padded image; pixels outside the image
+read as 0, i.e. invalid.
 
-This chain is the plain version of the hand-written kernel
-``csrc/fused_preprocess.cu`` (see ``ops/fused_preprocess.py``), and the
-kernel follows its operation order.
+The bilateral-normals-radii chain is the plain version of the hand-written
+kernel ``csrc/fused_preprocess.cu`` (see ``ops/fused_preprocess.py``), and
+the kernel follows its operation order.
 """
 
 from __future__ import annotations
@@ -225,3 +228,55 @@ def compute_min_max_depth(depth: torch.Tensor
   min_d = torch.where(valid, depth, float("inf")).min()
   max_d = torch.where(valid, depth, 0.0).max()
   return min_d, max_d
+
+
+def _median_of_valid(stack: torch.Tensor) -> torch.Tensor:
+  """Per pixel, the median of the valid (> 0) entries of a (K, H, W) stack,
+  the lower one of an even count (libvis takes element (n - 1) // 2 of the
+  sorted run); 0 where none is valid."""
+  valid = stack > 0.0
+  n = valid.sum(dim=0)
+  srt = torch.sort(torch.where(valid, stack, float("inf")), dim=0).values
+  idx = torch.clamp(n - 1, min=0) // 2
+  med = torch.gather(srt, 0, idx[None])[0]
+  return torch.where(n > 0, med, 0.0)
+
+
+def downscale_depth_median_excluding_invalid(depth: torch.Tensor,
+                                             levels: int = 1) -> torch.Tensor:
+  """Half-resolution depth taking, per 2x2 block, the median of its valid
+  samples (libvis Image::DownscaleUsingMedianWhileExcluding(0), the
+  --pyramid_level_for_depth input path, bad_slam.cc:668-673); an odd last
+  row or column is dropped."""
+  for _ in range(levels):
+    h2, w2 = depth.shape[0] // 2, depth.shape[1] // 2
+    d = depth[: 2 * h2, : 2 * w2]
+    depth = _median_of_valid(torch.stack(
+        [d[0::2, 0::2], d[0::2, 1::2], d[1::2, 0::2], d[1::2, 1::2]]))
+  return depth
+
+
+def downscale_rgb(rgb: torch.Tensor, levels: int = 1) -> torch.Tensor:
+  """Half-resolution u8 RGB by 2x2 averaging in float32, rounded once at
+  the end (the --pyramid_level_for_color input path)."""
+  out = rgb.to(torch.float32)
+  for _ in range(levels):
+    h2, w2 = out.shape[0] // 2, out.shape[1] // 2
+    d = out[: 2 * h2, : 2 * w2]
+    out = 0.25 * (d[0::2, 0::2] + d[0::2, 1::2] + d[1::2, 0::2]
+                  + d[1::2, 1::2])
+  return torch.clamp(out + 0.5, 0, 255).to(torch.uint8)
+
+
+def median_filter_and_densify(depth: torch.Tensor,
+                              iterations: int) -> torch.Tensor:
+  """The optional median filter and densification (preprocessing.cc:40-85):
+  each iteration replaces every pixel by the median of the valid entries
+  of its 3x3 neighbourhood, which fills a hole next to a valid pixel."""
+  h, w = depth.shape
+  for _ in range(iterations):
+    padded = _pad(depth, 1)
+    depth = _median_of_valid(torch.stack(
+        [padded[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+         for dy in (-1, 0, 1) for dx in (-1, 0, 1)]))
+  return depth

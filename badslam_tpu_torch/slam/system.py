@@ -6,35 +6,66 @@ Port of the sequential path of ``badslam_tpu/slam/system.py``
                        keyframe creation every keyframe_interval frames,
                        then the planned bundle-adjustment iterations
   PreprocessFrame      u16 depth to metres and RGB to intensity on the
-                       device, then the fused depth preprocess (hand-written
-                       CUDA kernel on a GPU, its plain chain on the CPU)
+                       device, optionally the median filter and the
+                       pyramid-level downscales, then the fused depth
+                       preprocess (hand-written CUDA kernel on a GPU, its
+                       plain chain on the CPU)
   PredictFramePose     two constant-velocity hypotheses, orthonormalized
   RunOdometry          calibrate, build pyramids, coarse-to-fine pairwise
                        tracking, tracking-failure gate
   CreateKeyframe       the memory watchdog, register the keyframe in the
-                       map (the first one creates surfels unfiltered), loop
-                       detection and closing, rebase the motion-model
-                       history, plan BA iterations
+                       map (the first one creates surfels unfiltered) or
+                       queue it for the BA thread, loop detection and
+                       closing, rebase the motion-model history, plan BA
+                       iterations
   RunBundleAdjustment  BA over the map (alternating, or joint by PCG with
                        ``use_pcg``), with self-calibration on the schedule
                        of ``optimize_intrinsics``, then the trajectory
                        deformation of the frames between keyframes
 
-Self-calibration changes the shared ``DepthCalibration`` in place while the
-system runs: the next frame's preprocessing and odometry read the new
-values from the same tensors.
+Parallel BA (``parallel_ba``, the default; BAThreadMain, bad_slam.cc:
+1160-1313): keyframes go into a queue with their pose relative to the
+previous keyframe, and a BA thread registers them (fixing the absolute pose
+up from the relative one, as the previous keyframe may have moved), runs the
+loop closing and one BA iteration per request over all keyframes, then the
+trajectory deformation. The BA thread is the map's only writer; the
+watchdog's merge is routed to it. Shared host state is guarded by
+``_ba_lock``. A BA thread that raises stops, and the main thread raises its
+error at its next keyframe or at ``stop_ba_thread_and_wait``.
+
+On a GPU the two threads run on two CUDA streams, as the reference does
+(bad_slam.cc:68-74): the frame's work on a high-priority stream, BA on a
+low-priority one. Every hand-off from the main thread (a keyframe, an
+iteration request, a merge request) records an event on the main stream
+that the BA stream waits on before it starts the requested work, and a
+queued keyframe's tensors are marked as used by the BA stream
+(``record_stream``) so that the caching allocator cannot hand their memory
+out while BA still reads them. Between frames the main thread puts no work
+on the caller's stream; ``quiesce`` and ``stop_ba_thread_and_wait`` make
+the caller's stream wait for both. The map is allocated on the BA stream.
+
+The calibration: sequential BA writes the shared ``DepthCalibration`` in
+place, and the next frame's preprocessing and odometry read the new values
+from the same tensors. Under parallel BA the front-end reads a snapshot
+instead: after an iteration with self-calibration the BA thread publishes a
+clone of its calibration with an event, and the main thread takes the
+newest publication once, at the start of a frame, and waits for its event.
+Both readers of one frame (the preprocess kernel and odometry) thus see the
+same values, whatever the BA thread writes meanwhile.
 
 Loop detection (``loop/detector.py``) runs its feature extraction and
 database query on a thread of its own unless ``parallel_loop_detection`` is
-off; the closing runs here, on the main thread, inside ``create_keyframe``.
+off; the closing runs inside the keyframe's registration: on the main
+thread under sequential BA, on the BA thread under parallel BA.
 
-Configurations outside the port so far (the parallel BA thread, the
-pipelined front-end) are refused in ``BadSlam.__init__``, each naming the
+The pipelined front-end is refused in ``BadSlam.__init__``, naming the
 ROADMAP item that will port it.
 """
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import threading
 import time
 from typing import List, NamedTuple, Optional, Tuple
@@ -49,7 +80,7 @@ from badslam_tpu_torch.loop.trajectory_deformation import (
     extrapolate_and_interpolate_keyframe_pose_changes)
 from badslam_tpu_torch.models import odometry as odometry_mod
 from badslam_tpu_torch.models.calibration import DepthCalibration
-from badslam_tpu_torch.ops import depth_model, image_proc
+from badslam_tpu_torch.ops import depth_model, depth_proc, image_proc
 from badslam_tpu_torch.ops.fused_preprocess import fused_depth_preprocess
 from badslam_tpu_torch.ops.pyramid import build_pyramid
 from badslam_tpu_torch.slam.direct_ba import DirectBA, unported
@@ -65,6 +96,9 @@ from badslam_tpu_torch.utils.timing import Timing
 WEAK_EDGE_WEIGHT = 0.05
 # kApproxKeyframeSize of the memory watchdog (bad_slam.cc:958-968).
 APPROX_KEYFRAME_BYTES = 4 * 1024 * 1024
+# How long stop_ba_thread_and_wait waits for the BA thread to finish the
+# iteration it is in once asked to quit.
+BA_THREAD_JOIN_SECONDS = 600.0
 
 
 class ProcessedFrame(NamedTuple):
@@ -82,25 +116,15 @@ class NoCudaDeviceError(RuntimeError):
   """The run was to compute on the CUDA device and none is visible."""
 
 
+class BAThreadError(RuntimeError):
+  """The parallel BA thread raised; the original error is the cause."""
+
+
 def check_supported(config: BadSlamConfig, device: torch.device) -> None:
-  """Raise NotImplementedError for a configuration outside the slice."""
-  refusals = [
-      (config.parallel_ba,
-       "parallel BA (pass --sequential_ba)", 'item 6 "Threads"'),
-      (config.pipelined_frontend or config.pipelined_concurrent_ba,
-       "--pipelined_frontend", 'item 10 "Pipelined front-end"'),
-      (config.median_filter_and_densify_iterations > 0,
-       "--median_filter_and_densify_iterations > 0",
-       'item 5 "Sequential system and CLI"'),
-      (config.pyramid_level_for_depth > 0 or config.pyramid_level_for_color > 0,
-       "--pyramid_level_for_depth/--pyramid_level_for_color > 0",
-       'item 5 "Sequential system and CLI"'),
-      (not config.estimate_poses, "--no_pose_estimation",
-       'item 5 "Sequential system and CLI"'),
-  ]
-  for refused, what, item in refusals:
-    if refused:
-      raise NotImplementedError(unported(what, item))
+  """Raise NotImplementedError for a configuration outside the port."""
+  if config.pipelined_frontend or config.pipelined_concurrent_ba:
+    raise NotImplementedError(unported(
+        "--pipelined_frontend", 'item 10 "Pipelined front-end"'))
   if device.type == "cuda" and not config.use_pallas_preprocess:
     raise NotImplementedError(
         "--no_pallas_preprocess on a CUDA device: there the plain "
@@ -108,10 +132,10 @@ def check_supported(config: BadSlamConfig, device: torch.device) -> None:
 
 
 class BadSlam:
-  """The system orchestrator (class BadSlam, bad_slam.h), sequential path.
-  It computes on ``device``: the CUDA device when none is named, the CPU
-  only when the caller asks for it. ``loop_detector`` replaces the one
-  that ``config.enable_loop_detection`` would build."""
+  """The system orchestrator (class BadSlam, bad_slam.h). It computes on
+  ``device``: the CUDA device when none is named, the CPU only when the
+  caller asks for it. ``loop_detector`` replaces the one that
+  ``config.enable_loop_detection`` would build."""
 
   def __init__(self, config: BadSlamConfig, rgbd_video: RGBDVideo,
                device=None, loop_detector=None):
@@ -124,28 +148,49 @@ class BadSlam:
     check_supported(config, self.device)
     self.config = config
     self.rgbd_video = rgbd_video
-    # The one depth calibration: preprocessing, odometry and the back-end
-    # all read this object.
-    self.calibration = DepthCalibration.initial(
-        rgbd_video.depth_camera, config.sparse_surfel_cell_size,
-        config.depth_deformation_a, config.baseline_fx, self.device)
-    self.direct_ba = DirectBA(
-        config, rgbd_video.depth_camera, rgbd_video.color_camera,
-        device=self.device, calibration=self.calibration)
+    # The parallel BA thread (bad_slam.cc:1160-1313) needs estimated poses:
+    # with --no_pose_estimation there is no BA at all.
+    self._parallel = bool(config.parallel_ba and config.estimate_poses)
+    # The two CUDA streams of the parallel mode (bad_slam.cc:68-74): the
+    # frame's work at high priority, BA at low priority. Elsewhere the
+    # caller's stream does everything.
+    self._main_stream = self._ba_stream = None
+    if self._parallel and self.device.type == "cuda":
+      self._main_stream = torch.cuda.Stream(self.device, priority=-1)
+      self._ba_stream = torch.cuda.Stream(self.device, priority=0)
+    # Pyramid-level input scaling (main.cc:540-552): cameras and images are
+    # downscaled by 2^level before anything else sees them.
+    depth_cam = rgbd_video.depth_camera.scaled(
+        0.5 ** config.pyramid_level_for_depth)
+    color_cam = rgbd_video.color_camera.scaled(
+        0.5 ** config.pyramid_level_for_color)
+    with self._on_stream(self._ba_stream):
+      # The back-end's depth calibration. Sequential BA shares this very
+      # object with preprocessing and odometry; parallel BA hands the
+      # front-end snapshots of it (_frame_calibration).
+      self.calibration = DepthCalibration.initial(
+          depth_cam, config.sparse_surfel_cell_size,
+          config.depth_deformation_a, config.baseline_fx, self.device)
+      self.direct_ba = DirectBA(
+          config, depth_cam, color_cam, device=self.device,
+          calibration=self.calibration)
+    if self._ba_stream is not None:
+      torch.cuda.current_stream(self.device).wait_stream(self._ba_stream)
     if loop_detector is None and config.enable_loop_detection:
       from badslam_tpu_torch.loop.detector import LoopDetector
       loop_detector = LoopDetector(
-          config, rgbd_video.color_camera,
-          parallel=config.parallel_loop_detection)
+          config, color_cam, parallel=config.parallel_loop_detection)
     self.loop_detector = loop_detector
-    # Guards the map's poses and the trajectory against a concurrent
-    # writer: the loop closure takes it (the BA thread of ROADMAP queue 1
-    # item 6 will share it).
+    # Guards the map's poses, the trajectory and the hand-off queues below
+    # (ba_thread_mutex_): the BA thread, the loop closure and the main
+    # thread's pose writes take it.
     self._ba_lock = threading.Lock()
+    self._ba_condition = threading.Condition(self._ba_lock)
 
     # Base keyframe: its slot in the keyframe store, pose, images, and the
     # motion-model history (<= 3 relative poses, base_kf_T_frame and its
-    # inverse).
+    # inverse). The images let odometry track against a keyframe that the
+    # BA thread has not registered yet (bad_slam.cc:997-1000).
     self.base_kf_index: Optional[int] = None
     self.base_kf_images: Optional[ProcessedFrame] = None
     self.base_kf_global_T_frame = np.eye(4, dtype=np.float32)
@@ -171,23 +216,67 @@ class BadSlam:
     self._target_frame_end_time = 0.0
     self._frame_timer_start: Optional[float] = None
 
+    # Parallel-BA state, guarded by _ba_lock: the keyframe queue (processed
+    # frame, frame index, pose relative to the previous keyframe, detection
+    # images, edge weight), the iteration requests, the watchdog's merge
+    # request, and the newest main-stream event the BA stream must wait on.
+    self._queued_keyframes: List[tuple] = []
+    self._parallel_iteration_queue: List[dict] = []
+    self._merge_requested = False
+    self._quit_requested = False
+    self._ba_busy = False   # the BA thread is working on a popped request
+    self._handoff_event = None
+    self._ba_thread_error: Optional[BaseException] = None   # not raised yet
+    self._ba_thread_failed = False
+    # The front-end's calibration under parallel BA: the snapshot it reads,
+    # and the BA thread's newest publication (snapshot, event) not yet taken.
+    self._front_calibration: Optional[DepthCalibration] = None
+    self._published_calibration = None
+    self._ba_thread: Optional[threading.Thread] = None
+    if self._parallel:
+      self._ba_thread = threading.Thread(
+          target=self._ba_thread_main, name="ba_thread", daemon=True)
+      self._ba_thread.start()
+      # Stop the thread before the interpreter tears down under it.
+      atexit.register(self.stop_ba_thread_and_wait)
+
+  @staticmethod
+  def _on_stream(stream):
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())
+
   # --- per-frame pipeline ---
 
   def process_frame(self, frame_index: int, force_keyframe: bool = False):
-    """ProcessFrame (bad_slam.cc:170-279)."""
+    """ProcessFrame (bad_slam.cc:170-279). Under parallel BA on a GPU the
+    frame runs on the high-priority stream, ordered after the caller's
+    stream's earlier work and before its later work."""
+    if self._main_stream is None:
+      return self._process_frame(frame_index, force_keyframe)
+    caller = torch.cuda.current_stream(self.device)
+    self._main_stream.wait_stream(caller)
+    with torch.cuda.stream(self._main_stream):
+      self._process_frame(frame_index, force_keyframe)
+    caller.wait_stream(self._main_stream)
+
+  def _process_frame(self, frame_index: int, force_keyframe: bool):
     cfg = self.config
     self._frame_timer_start = time.perf_counter()
     if cfg.target_frame_rate > 0:
       self._target_frame_end_time += 1.0 / cfg.target_frame_rate
 
+    calibration = self._frame_calibration()
     with Timing.time("Preprocessing"):
-      processed = self.preprocess_frame(frame_index)
+      processed = self.preprocess_frame(frame_index, calibration)
 
-    if self.base_kf_images is not None:
+    if cfg.estimate_poses and self.base_kf_images is not None:
       with Timing.time("Odometry"):
-        self.run_odometry(frame_index, processed)
+        self.run_odometry(frame_index, processed, calibration)
     else:
-      self.last_frame_index = max(self.last_frame_index, frame_index)
+      # No odometry ran (the first frame, or mapping only): the frame still
+      # counts as processed for the export and the deformation bounds.
+      with self._ba_lock:
+        self.last_frame_index = max(self.last_frame_index, frame_index)
 
     create_keyframe = (
         force_keyframe
@@ -198,8 +287,8 @@ class BadSlam:
 
     if self.num_planned_ba_iterations > 0:
       # Real-time budget: sequential BA only starts with frame time left
-      # (bad_slam.cc:213-219).
-      if cfg.target_frame_rate > 0:
+      # (bad_slam.cc:213-219); the BA thread has no frame budget.
+      if not self._parallel and cfg.target_frame_rate > 0:
         elapsed = time.perf_counter() - self._frame_timer_start
         if (self._actual_frame_start_time + elapsed
             >= self._target_frame_end_time):
@@ -208,12 +297,20 @@ class BadSlam:
       # Self-calibration starts with the tenth keyframe, runs in every BA
       # call up to the twentieth and at an interval after (bad_slam.cc:
       # 226-236); depth only with geometric residuals, color only with
-      # photometric ones.
-      k = self.direct_ba.keyframe_count
+      # photometric ones. Queued keyframes count.
+      with self._ba_lock:
+        k = self.direct_ba.keyframe_count + len(self._queued_keyframes)
       optimize_intrinsics = (
           cfg.optimize_intrinsics and k >= 10 and
           (k <= 20
            or self.ba_counter % cfg.intrinsics_optimization_interval == 0))
+      optimize_depth = optimize_intrinsics and cfg.use_geometric_residuals
+      optimize_color = optimize_intrinsics and cfg.use_photometric_residuals
+      if self._parallel:
+        self.start_parallel_iterations(self.num_planned_ba_iterations,
+                                       optimize_depth, optimize_color)
+        self.num_planned_ba_iterations = 0
+        return
       deadline = None
       if cfg.target_frame_rate > 0:
         # The rest of the frame's time as an absolute deadline
@@ -222,15 +319,38 @@ class BadSlam:
                     + (self._target_frame_end_time
                        - self._actual_frame_start_time))
       iterations_done, converged = self.run_bundle_adjustment(
-          optimize_intrinsics and cfg.use_geometric_residuals,
-          optimize_intrinsics and cfg.use_photometric_residuals,
-          self.num_planned_ba_iterations, deadline=deadline,
+          optimize_depth, optimize_color, self.num_planned_ba_iterations,
+          deadline=deadline,
           increase_ba_iteration_count=(cfg.target_frame_rate == 0))
       if converged:
         self.num_planned_ba_iterations = 0
       else:
         self.num_planned_ba_iterations = max(
             0, self.num_planned_ba_iterations - iterations_done)
+
+  def _frame_calibration(self) -> DepthCalibration:
+    """The calibration this frame's preprocessing and odometry read: the
+    shared object under sequential BA; under parallel BA the newest
+    snapshot the BA thread published, taken here once per frame, with the
+    main stream made to wait for the snapshot's event."""
+    if not self._parallel:
+      return self.calibration
+    with self._ba_lock:
+      published, self._published_calibration = (
+          self._published_calibration, None)
+    if published is not None:
+      snapshot, event = published
+      if event is not None:
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(event)
+        for t in snapshot.buffers():
+          t.record_stream(stream)
+      self._front_calibration = snapshot
+    elif self._front_calibration is None:
+      # The first frame: nothing runs on the BA thread yet (a loaded state
+      # or calibration is already in place).
+      self._front_calibration = self.calibration.clone()
+    return self._front_calibration
 
   def end_frame(self):
     """EndFrame: pace playback to fps_restriction; in real-time mode
@@ -255,25 +375,43 @@ class BadSlam:
       if self._actual_frame_start_time < self._target_frame_end_time:
         self._actual_frame_start_time = self._target_frame_end_time
 
-  def preprocess_frame(self, frame_index: int) -> ProcessedFrame:
-    """PreprocessFrame (bad_slam.cc:688-761). The u16 counts go to the
-    device as float32 (exact) and are scaled to metres there, as the
-    reference converts on the device."""
+  def preprocess_frame(self, frame_index: int,
+                       calibration: Optional[DepthCalibration] = None
+                       ) -> ProcessedFrame:
+    """PreprocessFrame (bad_slam.cc:639-761) with ``calibration`` (the
+    shared one when none is given). On the hot path the u16 counts go to
+    the device and are scaled to metres there, as the reference converts on
+    the device; with the median filter or a depth pyramid level the metric
+    depth is filtered and downscaled first (bad_slam.cc:663-673)."""
     cfg = self.config
     video = self.rgbd_video
-    raw = video.frames[frame_index].depth_raw()
-    raw_scale = 1.0
-    if raw.dtype == np.uint16:
-      raw_scale = float(video.raw_to_float_depth)
-      raw = raw.astype(np.float32)
+    frame = video.frames[frame_index]
+    if calibration is None:
+      calibration = self.calibration
+    if (cfg.median_filter_and_densify_iterations == 0
+        and cfg.pyramid_level_for_depth == 0):
+      raw_depth, raw_scale = self._upload_depth(frame)
+      if raw_scale != 1.0:
+        raw_depth = raw_depth * raw_scale
     else:
-      raw = raw.astype(np.float32) * video.raw_to_float_depth
-    raw_depth = torch.from_numpy(raw).to(self.device)
-    if raw_scale != 1.0:
-      raw_depth = raw_depth * raw_scale
-    rgb = torch.from_numpy(video.frames[frame_index].rgb()).to(self.device)
+      metric = (frame.depth_raw().astype(np.float32)
+                * np.float32(video.raw_to_float_depth))
+      raw_depth = torch.from_numpy(metric).to(self.device)
+      if cfg.median_filter_and_densify_iterations > 0:
+        raw_depth = depth_proc.median_filter_and_densify(
+            raw_depth, cfg.median_filter_and_densify_iterations)
+      if cfg.pyramid_level_for_depth > 0:
+        raw_depth = depth_proc.downscale_depth_median_excluding_invalid(
+            raw_depth, cfg.pyramid_level_for_depth)
+    pinned = frame.pinned()
+    if pinned is not None:
+      rgb = pinned[0].to(self.device, non_blocking=True)
+    else:
+      rgb = torch.from_numpy(frame.rgb()).to(self.device)
+    if cfg.pyramid_level_for_color > 0:
+      rgb = depth_proc.downscale_rgb(rgb, cfg.pyramid_level_for_color)
     filtered, normals, radius_sq = fused_depth_preprocess(
-        raw_depth, self.calibration,
+        raw_depth, calibration,
         sigma_xy=cfg.bilateral_filter_sigma_xy,
         sigma_inv_depth=cfg.bilateral_filter_sigma_inv_depth,
         radius_factor=cfg.bilateral_filter_radius_factor,
@@ -282,6 +420,24 @@ class BadSlam:
         depth=filtered, raw_depth=raw_depth, normals=normals,
         radius_sq=radius_sq, intensity=image_proc.rgb_to_intensity(rgb),
         rgb=rgb)
+
+  def _upload_depth(self, frame) -> Tuple[torch.Tensor, float]:
+    """The frame's depth on the device as float32 raw counts and the scale
+    to metres (u16 counts are exact in float32). A frame that the
+    prefetcher put in page-locked memory is copied without blocking the
+    host, as int16 bits widened on the device."""
+    video = self.rgbd_video
+    pinned = frame.pinned()
+    if pinned is not None:
+      bits = pinned[1].to(self.device, non_blocking=True)
+      counts = (bits.to(torch.int32) & 0xFFFF).to(torch.float32)
+      return counts, float(video.raw_to_float_depth)
+    raw = frame.depth_raw()
+    if raw.dtype == np.uint16:
+      return (torch.from_numpy(raw.astype(np.float32)).to(self.device),
+              float(video.raw_to_float_depth))
+    raw = raw.astype(np.float32) * video.raw_to_float_depth
+    return torch.from_numpy(raw).to(self.device), 1.0
 
   def predict_frame_pose(self) -> Tuple[np.ndarray, np.ndarray]:
     """Two constant-velocity hypotheses (bad_slam.cc:763-825), as
@@ -310,18 +466,22 @@ class BadSlam:
       return se3_np.orthonormalize(e)
     return sane(est1), sane(est2)
 
-  def run_odometry(self, frame_index: int, processed: ProcessedFrame):
+  def run_odometry(self, frame_index: int, processed: ProcessedFrame,
+                   calibration: Optional[DepthCalibration] = None):
     """RunOdometry (bad_slam.cc:827-951): the tracked side uses the
     unfiltered depth, the base side the keyframe's filtered depth, both
-    calibrated."""
+    calibrated with ``calibration`` (the shared one when none is given)."""
     cfg = self.config
+    if calibration is None:
+      calibration = self.calibration
     est1, est2 = self.predict_frame_pose()
-    w, h = self.calibration.depth_size
+    w, h = calibration.depth_size
 
     base = self.base_kf_images
     base_T_frame, n_resid = self._track_pairwise(
-        base.depth, base.normals, base.intensity, processed.raw_depth,
-        processed.normals, processed.intensity, est1, est2)
+        calibration, base.depth, base.normals, base.intensity,
+        processed.raw_depth, processed.normals, processed.intensity, est1,
+        est2)
     # Per-frame host reads, as in the reference: renormalize the result
     # (it feeds the motion model) and read the residual count.
     base_T_frame = se3_np.orthonormalize(base_T_frame.cpu().numpy())
@@ -343,24 +503,27 @@ class BadSlam:
       base_T_frame = prev_rel
       self._tracking_failed_since_kf = True
 
-    self.rgbd_video.frames[frame_index].global_T_frame = (
-        self.base_kf_global_T_frame @ base_T_frame)
-    self.last_frame_index = frame_index
+    # The BA thread and the loop closure move the base pose and the frame
+    # poses under this lock.
+    with self._ba_lock:
+      self.rgbd_video.frames[frame_index].global_T_frame = (
+          self.base_kf_global_T_frame @ base_T_frame)
+      self.last_frame_index = frame_index
     if len(self.base_kf_tr_frame) >= 3:
       self.base_kf_tr_frame.pop(0)
       self.frame_tr_base_kf.pop(0)
     self.base_kf_tr_frame.append(base_T_frame)
     self.frame_tr_base_kf.append(se3_np.inverse(base_T_frame))
 
-  def _track_pairwise(self, base_depth, base_normals, base_intensity,
-                      tracked_depth, tracked_normals, tracked_intensity,
+  def _track_pairwise(self, calib: DepthCalibration, base_depth,
+                      base_normals, base_intensity, tracked_depth,
+                      tracked_normals, tracked_intensity,
                       est1, est2) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Calibrate both depth images, build both pyramids and track
-    coarse-to-fine from two initial base_T_tracked estimates (the compute
-    core of RunOdometry, bad_slam.cc:827-951). Returns (base_T_tracked,
-    residual count), both on the device."""
+    """Calibrate both depth images with ``calib``, build both pyramids and
+    track coarse-to-fine from two initial base_T_tracked estimates (the
+    compute core of RunOdometry, bad_slam.cc:827-951). Returns
+    (base_T_tracked, residual count), both on the device."""
     cfg = self.config
-    calib = self.calibration
     residual_type = "gradient_xy"
     if cfg.use_gradmag_for_tracking:
       residual_type = "gradmag"
@@ -391,12 +554,14 @@ class BadSlam:
     """Direct multi-scale alignment of two stored keyframes, for the loop
     closure's refinement (loop_detector.cc:498-548: base = the current
     keyframe, tracked = the matched keyframe or a neighbour; both sides use
-    the keyframes' filtered depth, calibrated on the fly)."""
+    the keyframes' filtered depth, calibrated on the fly with the map's
+    calibration; under parallel BA this runs on the BA thread)."""
     kf = self.direct_ba.kf
     base_T_tracked, _ = self._track_pairwise(
-        kf.depth[base_slot], kf.normals[base_slot], kf.intensity[base_slot],
-        kf.depth[tracked_slot], kf.normals[tracked_slot],
-        kf.intensity[tracked_slot], base_T_tracked_init, base_T_tracked_init)
+        self.calibration, kf.depth[base_slot], kf.normals[base_slot],
+        kf.intensity[base_slot], kf.depth[tracked_slot],
+        kf.normals[tracked_slot], kf.intensity[tracked_slot],
+        base_T_tracked_init, base_T_tracked_init)
     return base_T_tracked.cpu().numpy()
 
   def _tracking_failure_injected(self, frame_index: int) -> bool:
@@ -413,7 +578,8 @@ class BadSlam:
     """AddKeyframeToBA (bad_slam.cc:1120-1158): register the keyframe in the
     store (the first keyframe creates its surfels unfiltered), then run the
     loop closing when ``detection_images``, the host copies of its
-    intensity and depth, are given."""
+    intensity and depth, are given. The caller must not hold _ba_lock: the
+    closing takes it."""
     ba = self.direct_ba
     idx = ba.add_keyframe(
         processed.depth, processed.normals, processed.radius_sq,
@@ -469,9 +635,17 @@ class BadSlam:
       self.request_keyframe_merge()
 
   def request_keyframe_merge(self):
-    """The memory-pressure keyframe merge, sequential path: the main thread
-    is the map's only writer, so it merges here. Deleted keyframes leave
-    the loop detector's database too."""
+    """The memory-pressure keyframe merge. The map has one writer: the main
+    thread under sequential BA, which merges here, and the BA thread under
+    parallel BA, to which the request goes (the reference holds
+    ba_thread_mutex_ across a BA iteration, bad_slam.cc:1273-1289). Deleted
+    keyframes leave the loop detector's database too."""
+    if self._parallel:
+      with self._ba_condition:
+        self._merge_requested = True
+        self._handoff_event = self._record_main_event()
+        self._ba_condition.notify_all()
+      return
     deleted = self.direct_ba.merge_keyframes(self.loop_detector)
     self.num_keyframes_merged += deleted
     if deleted:
@@ -479,14 +653,19 @@ class BadSlam:
 
   def create_keyframe(self, frame_index: int, processed: ProcessedFrame):
     """CreateKeyframe (bad_slam.cc:953-1097)."""
+    self._raise_if_ba_thread_failed()
     self._check_memory_pressure()
     global_T_frame = np.asarray(
         self.rgbd_video.frames[frame_index].global_T_frame)
+    # This keyframe's pose relative to the previous one, for the BA
+    # thread's absolute-pose fixup (bad_slam.cc:1035-1037,1229-1231).
+    last_kf_T_this = (self.base_kf_tr_frame[-1] if self.base_kf_tr_frame
+                      else np.eye(4, dtype=np.float32))
     # Loop detection is decided here, and the host copies of the images
     # made here, on the main thread (bad_slam.cc:1016-1023); with parallel
     # detection the feature extraction and query run ahead on the
-    # detector's thread, each queued image paired 1:1 with the closing
-    # below.
+    # detector's thread, each queued image paired 1:1 with the closing in
+    # the keyframe's registration.
     detection_images = None
     if (self.loop_detector is not None
         and self._loop_detection_due(frame_index)):
@@ -498,12 +677,30 @@ class BadSlam:
                    else 1.0)
     self._tracking_failed_since_kf = False
 
-    self.base_kf_index = self._add_keyframe_to_ba(
-        processed, frame_index, global_T_frame, detection_images, edge_weight)
-    # The pose the keyframe was created at, as in the reference, even where
-    # a loop closure inside just moved it: the next BA's trajectory
-    # deformation refreshes it.
-    self.base_kf_global_T_frame = global_T_frame
+    if self._parallel:
+      if self._ba_stream is not None:
+        # BA reads these tensors on its stream: their memory must not be
+        # handed out again before it has.
+        for t in processed:
+          t.record_stream(self._ba_stream)
+      with self._ba_condition:
+        self._queued_keyframes.append(
+            (processed, frame_index, last_kf_T_this, detection_images,
+             edge_weight))
+        keyframes_added = (len(self._queued_keyframes)
+                           + self.direct_ba.keyframe_count)
+        self.base_kf_index = None   # set when the BA thread registers it
+        self.base_kf_global_T_frame = global_T_frame
+        self._handoff_event = self._record_main_event()
+    else:
+      self.base_kf_index = self._add_keyframe_to_ba(
+          processed, frame_index, global_T_frame, detection_images,
+          edge_weight)
+      # The pose the keyframe was created at, as in the reference, even
+      # where a loop closure inside just moved it: the next BA's trajectory
+      # deformation refreshes it.
+      self.base_kf_global_T_frame = global_T_frame
+      keyframes_added = self.direct_ba.keyframe_count
     self.base_kf_images = processed
 
     # Rebase the motion-model history onto the new base keyframe
@@ -522,15 +719,212 @@ class BadSlam:
       self.base_kf_tr_frame.append(np.eye(4, dtype=np.float32))
       self.frame_tr_base_kf.append(np.eye(4, dtype=np.float32))
 
-    if self.direct_ba.keyframe_count >= 2:
+    if self.config.estimate_poses and keyframes_added >= 2:
       self.num_planned_ba_iterations += (
           self.config.max_num_ba_iterations_per_keyframe)
 
+  # --- parallel BA (BAThreadMain, bad_slam.cc:1160-1313) ---
+
+  def _record_main_event(self):
+    """An event after the main thread's work so far, on its stream (None
+    off the GPU): the BA stream waits on it before the work it hands
+    over."""
+    if self._main_stream is None:
+      return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(self.device))
+    return event
+
+  def start_parallel_iterations(self, num_planned: int,
+                                optimize_depth_intrinsics: bool,
+                                optimize_color_intrinsics: bool):
+    """StartParallelIterations (bad_slam.cc:1160-1190): queue up to
+    max_num_ba_iterations_per_keyframe iteration requests."""
+    self._raise_if_ba_thread_failed()
+    options = dict(optimize_depth_intrinsics=optimize_depth_intrinsics,
+                   optimize_color_intrinsics=optimize_color_intrinsics,
+                   do_surfel_updates=self.config.do_surfel_updates)
+    with self._ba_condition:
+      cap = self.config.max_num_ba_iterations_per_keyframe
+      to_queue = min(cap - len(self._parallel_iteration_queue), num_planned)
+      for _ in range(max(0, to_queue)):
+        self._parallel_iteration_queue.append(options)
+      self._handoff_event = self._record_main_event()
+      self._ba_condition.notify_all()
+
+  def _drain_keyframe_queue_locked(self):
+    """Register the queued keyframes, each at the pose of the last
+    registered keyframe (which BA may have moved) times its relative pose.
+    Called with _ba_lock held; releases it around each registration, whose
+    loop closing takes it."""
+    while self._queued_keyframes:
+      (processed, frame_index, last_kf_T_this, detection_images,
+       edge_weight) = self._queued_keyframes.pop(0)
+      ba = self.direct_ba
+      if ba.keyframe_count > 0:
+        last_pose = ba.kf.global_T_frame[ba.keyframe_count - 1]
+        global_T_frame = last_pose.cpu().numpy() @ last_kf_T_this
+      else:
+        global_T_frame = np.asarray(
+            self.rgbd_video.frames[frame_index].global_T_frame)
+      self._ba_lock.release()
+      try:
+        idx = self._add_keyframe_to_ba(processed, frame_index, global_T_frame,
+                                       detection_images, edge_weight)
+      finally:
+        self._ba_lock.acquire()
+      self.rgbd_video.frames[frame_index].global_T_frame = global_T_frame
+      if not self._queued_keyframes and self.base_kf_index is None:
+        self.base_kf_index = idx
+        self.base_kf_global_T_frame = global_T_frame
+
+  def _publish_calibration(self):
+    """Hand the front-end a snapshot of the calibration this thread just
+    changed, with an event after its copy on this thread's stream."""
+    snapshot = self.calibration.clone()
+    event = None
+    if self._ba_stream is not None:
+      event = torch.cuda.Event()
+      event.record(self._ba_stream)
+    with self._ba_lock:
+      self._published_calibration = (snapshot, event)
+
+  def _ba_thread_main(self):
+    """The BA thread: wait for a request, service a merge before the queued
+    keyframes are registered (so that memory is freed before they are
+    stored, bad_slam.cc:958-997), then run one BA iteration over all
+    keyframes, without deactivation or PCG (bad_slam.cc:1268-1289), and the
+    trajectory deformation. An error stops the thread and is kept for the
+    main thread to raise."""
+    try:
+      with self._on_stream(self._ba_stream):
+        while self._ba_thread_step():
+          pass
+    except BaseException as e:   # re-raised on the main thread
+      with self._ba_condition:
+        self._ba_thread_error = e
+        self._ba_thread_failed = True
+        self._ba_busy = False
+        self._ba_condition.notify_all()
+
+  def _ba_thread_step(self) -> bool:
+    """One request of the BA thread; False once it is asked to quit."""
+    with self._ba_condition:
+      self._ba_busy = False
+      while (not self._parallel_iteration_queue
+             and not self._merge_requested and not self._quit_requested):
+        self._ba_condition.wait(timeout=0.1)
+      if self._quit_requested:
+        return False
+      self._ba_busy = True
+      # A merge request alone still wakes the thread: memory pressure is
+      # serviced even when no BA iteration is planned.
+      options = (self._parallel_iteration_queue.pop(0)
+                 if self._parallel_iteration_queue else None)
+      merge_requested, self._merge_requested = self._merge_requested, False
+      handoff = self._handoff_event
+    if handoff is not None:
+      self._ba_stream.wait_event(handoff)
+
+    if merge_requested:
+      deleted = self.direct_ba.merge_keyframes(self.loop_detector)
+      self.num_keyframes_merged += deleted
+      if deleted:
+        log.warning(f"low device memory; merged {deleted} keyframe(s)")
+
+    with self._ba_lock:
+      self._drain_keyframe_queue_locked()
+      original = self.direct_ba.kf.global_T_frame.cpu().numpy().copy()
+    if options is None:
+      return True
+    k = self.direct_ba.keyframe_count
+    if k >= 2:
+      with Timing.time("BA thread iteration"):
+        self.direct_ba.bundle_adjustment(
+            optimize_depth_intrinsics=options["optimize_depth_intrinsics"],
+            optimize_color_intrinsics=options["optimize_color_intrinsics"],
+            do_surfel_updates=options["do_surfel_updates"],
+            optimize_poses=True, optimize_geometry=True,
+            min_iterations=0, max_iterations=1,
+            active_keyframe_window_start=0,
+            active_keyframe_window_end=k - 1,
+            increase_ba_iteration_count=False)
+      if (options["optimize_depth_intrinsics"]
+          or options["optimize_color_intrinsics"]):
+        self._publish_calibration()
+    self._apply_trajectory_deformation(original)
+    return True
+
+  def _raise_if_ba_thread_failed(self):
+    """Raise the BA thread's error on the calling thread, once."""
+    with self._ba_lock:
+      error, self._ba_thread_error = self._ba_thread_error, None
+    if error is not None:
+      raise BAThreadError(
+          f"the parallel BA thread failed: {error!r}") from error
+
+  def _join_streams(self):
+    """Make the caller's stream wait for the work of both streams."""
+    if self._main_stream is not None:
+      caller = torch.cuda.current_stream(self.device)
+      caller.wait_stream(self._main_stream)
+      caller.wait_stream(self._ba_stream)
+
+  def _drain_on_ba_stream_locked(self):
+    """_drain_keyframe_queue_locked from another thread while the BA thread
+    is idle, with the map's writes on the BA stream, after the caller's and
+    the main stream's work, and the caller's stream after them."""
+    self._join_streams()
+    if self._ba_stream is not None:
+      self._ba_stream.wait_stream(torch.cuda.current_stream(self.device))
+    with self._on_stream(self._ba_stream):
+      self._drain_keyframe_queue_locked()
+    self._join_streams()
+
+  def quiesce(self):
+    """Wait until the BA thread has no request queued or in progress, then
+    register the keyframes still queued, without stopping the thread: what
+    reads a full snapshot mid-run (``io/state.save_state``) calls this."""
+    if self._ba_thread is None:
+      return
+    while True:
+      self._raise_if_ba_thread_failed()
+      with self._ba_lock:
+        if (not self._parallel_iteration_queue and not self._ba_busy
+            and not self._merge_requested):
+          self._drain_on_ba_stream_locked()
+          return
+      time.sleep(0.005)
+
   def stop_ba_thread_and_wait(self):
-    """StopBAThreadAndWaitForIt (bad_slam.h), sequential path: stop the
-    loop detector's thread. Safe to call more than once."""
+    """StopBAThreadAndWaitForIt (bad_slam.h): let the BA thread finish its
+    queued iterations, stop it, register the keyframes still queued, and
+    stop the loop detector's thread; then raise the BA thread's error if it
+    had one. Safe to call more than once."""
+    thread = self._ba_thread
+    if thread is not None:
+      atexit.unregister(self.stop_ba_thread_and_wait)
+      while thread.is_alive():
+        with self._ba_lock:
+          if not self._parallel_iteration_queue:
+            break
+        time.sleep(0.01)
+      with self._ba_condition:
+        self._quit_requested = True
+        self._ba_condition.notify_all()
+      thread.join(timeout=BA_THREAD_JOIN_SECONDS)
+      if thread.is_alive():
+        raise BAThreadError(
+            f"the parallel BA thread did not stop within "
+            f"{BA_THREAD_JOIN_SECONDS} s of the request")
+      self._ba_thread = None
+      if not self._ba_thread_failed:
+        with self._ba_lock:
+          self._drain_on_ba_stream_locked()
+      self._join_streams()
     if self.loop_detector is not None:
       self.loop_detector.request_exit_and_wait()
+    self._raise_if_ba_thread_failed()
 
   # --- bundle adjustment ---
 
@@ -566,23 +960,25 @@ class BadSlam:
 
   def _apply_trajectory_deformation(self, original_kf_poses: np.ndarray):
     """Propagate the keyframes' pose changes to the frames between them and
-    refresh the cached base-keyframe pose (bad_slam.cc:524-530)."""
+    refresh the cached base-keyframe pose (bad_slam.cc:524-530), under
+    _ba_lock, which the caller must not hold."""
     new_poses = self.direct_ba.kf.global_T_frame.cpu().numpy()
-    n_kf = len(self.keyframe_frame_indices)
-    if n_kf and self.last_frame_index >= 0:
-      frame_poses = [f.global_T_frame for f in self.rgbd_video.frames]
-      orig_frame_T_global = se3_np.inverse(original_kf_poses[:n_kf])
-      for slot in range(n_kf):
-        frame_poses[self.keyframe_frame_indices[slot]] = new_poses[slot]
-      extrapolate_and_interpolate_keyframe_pose_changes(
-          self.keyframe_frame_indices, orig_frame_T_global,
-          new_poses[:n_kf], frame_poses,
-          start_frame=self.config.start_frame,
-          end_frame=self.last_frame_index)
-      for i, p in enumerate(frame_poses):
-        self.rgbd_video.frames[i].global_T_frame = p
-    if self.base_kf_index is not None:
-      self.base_kf_global_T_frame = new_poses[self.base_kf_index]
+    with self._ba_lock:
+      n_kf = len(self.keyframe_frame_indices)
+      if n_kf and self.last_frame_index >= 0:
+        frame_poses = [f.global_T_frame for f in self.rgbd_video.frames]
+        orig_frame_T_global = se3_np.inverse(original_kf_poses[:n_kf])
+        for slot in range(n_kf):
+          frame_poses[self.keyframe_frame_indices[slot]] = new_poses[slot]
+        extrapolate_and_interpolate_keyframe_pose_changes(
+            self.keyframe_frame_indices, orig_frame_T_global,
+            new_poses[:n_kf], frame_poses,
+            start_frame=self.config.start_frame,
+            end_frame=self.last_frame_index)
+        for i, p in enumerate(frame_poses):
+          self.rgbd_video.frames[i].global_T_frame = p
+      if self.base_kf_index is not None:
+        self.base_kf_global_T_frame = new_poses[self.base_kf_index]
 
   def update_keyframe_poses_in_video(self):
     """Write the optimized keyframe poses back to the video frames."""

@@ -183,25 +183,18 @@ def plane_world_normals(count: int = 3, seed: int = 7) -> np.ndarray:
   return np.asarray(normals)
 
 
-def make_synthetic_video(camera: PinholeCamera,
-                         trajectory: List[np.ndarray],
-                         plane_normals: np.ndarray, plane_d: float = 2.5,
-                         raw_to_float_depth: float = 1.0 / 5000.0,
-                         fps: float = 30.0, textured: bool = True,
-                         texture_kind: str = "sine") -> RGBDVideo:
-  """In-memory RGBDVideo of the plane world rendered along ``trajectory``
-  (per-frame global_T_frame), with u16 depth at ``raw_to_float_depth`` and
-  grey RGB; every frame's pose starts at the identity, to be estimated."""
+def _grey_rgb(intensity: np.ndarray) -> np.ndarray:
+  u8 = np.clip(np.floor(intensity * 255.0 + 0.5), 0, 255).astype(np.uint8)
+  return np.stack([u8, u8, u8], axis=-1)
+
+
+def _in_memory_video(camera: PinholeCamera, images, raw_to_float_depth: float,
+                     fps: float) -> RGBDVideo:
+  """RGBDVideo of (u8 RGB, metric depth) pairs, the depth stored as u16
+  counts at ``raw_to_float_depth``; every frame's pose starts at the
+  identity, to be estimated."""
   frames = []
-  for i, T in enumerate(trajectory):
-    depth = render_planes(camera, T, plane_normals, plane_d,
-                          raw_to_float_depth=raw_to_float_depth)
-    if textured:
-      inten = render_intensity(camera, T, depth, kind=texture_kind)
-      u8 = np.clip(np.floor(inten * 255.0 + 0.5), 0, 255).astype(np.uint8)
-      rgb = np.stack([u8, u8, u8], axis=-1)
-    else:
-      rgb = np.zeros(depth.shape + (3,), np.uint8)
+  for i, (rgb, depth) in enumerate(images):
     f = Frame(rgb_path="", depth_path="", rgb_timestamp=i / fps,
               depth_timestamp=i / fps)
     f._rgb = rgb
@@ -209,6 +202,41 @@ def make_synthetic_video(camera: PinholeCamera,
     frames.append(f)
   return RGBDVideo(frames=frames, color_camera=camera, depth_camera=camera,
                    raw_to_float_depth=raw_to_float_depth)
+
+
+def make_synthetic_video(camera: PinholeCamera,
+                         trajectory: List[np.ndarray],
+                         plane_normals: np.ndarray, plane_d: float = 2.5,
+                         raw_to_float_depth: float = 1.0 / 5000.0,
+                         fps: float = 30.0, textured: bool = True,
+                         texture_kind: str = "sine") -> RGBDVideo:
+  """In-memory RGBDVideo of the plane world rendered along ``trajectory``
+  (per-frame global_T_frame), with grey RGB (black without texture)."""
+  def images():
+    for T in trajectory:
+      depth = render_planes(camera, T, plane_normals, plane_d,
+                            raw_to_float_depth=raw_to_float_depth)
+      rgb = (_grey_rgb(render_intensity(camera, T, depth, kind=texture_kind))
+             if textured else np.zeros(depth.shape + (3,), np.uint8))
+      yield rgb, depth
+  return _in_memory_video(camera, images(), raw_to_float_depth, fps)
+
+
+def make_heightmap_video(camera: PinholeCamera,
+                         trajectory: List[np.ndarray],
+                         z_distance: float = 1.0, z_variation: float = 0.05,
+                         seed: int = 5,
+                         raw_to_float_depth: float = 1.0 / 5000.0,
+                         fps: float = 30.0) -> RGBDVideo:
+  """In-memory RGBDVideo of the heightmap world along ``trajectory`` (dense
+  texture and varied normals, so it tracks well), with grey RGB."""
+  def images():
+    for T in trajectory:
+      depth, intensity = render_heightmap(
+          camera, T, z_distance, z_variation, seed,
+          raw_to_float_depth=raw_to_float_depth)
+      yield _grey_rgb(intensity), depth
+  return _in_memory_video(camera, images(), raw_to_float_depth, fps)
 
 
 class SyntheticKeyframe(NamedTuple):

@@ -5,9 +5,13 @@ total / mean / min / max, exported by ``--export_final_timings``).
 
 CUDA work is asynchronous, so ``Timing.time(...)`` measures the host wall
 time of the block. With ``Timing.set_device_accurate(True)`` (CLI
-``--device_accurate_timings``) every timed scope opens and closes with
-``torch.cuda.synchronize()``, so its span covers exactly that phase's
-device work. The synchronizations cost a host-device round trip each.
+``--device_accurate_timings``) every timed scope opens and closes by waiting
+for the calling thread's current CUDA stream, so its span covers that
+phase's work on that stream: under parallel BA the frame's phases (on the
+main thread's stream) and the BA thread's iterations (on its own stream)
+are each timed without waiting for the other thread's work, although the
+two share the device while both run. The waits cost a host-device round
+trip each. Spans are recorded from any thread.
 """
 
 from __future__ import annotations
@@ -57,8 +61,11 @@ class Timing:
 
   @classmethod
   def device_barrier(cls):
+    """Wait for the work queued so far on the calling thread's current
+    stream (only that stream: the other thread's work is not this phase's).
+    """
     if cls._device_accurate and torch.cuda.is_available():
-      torch.cuda.synchronize()
+      torch.cuda.current_stream().synchronize()
 
   @classmethod
   def add_time(cls, tag: str, seconds: float):

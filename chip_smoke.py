@@ -86,7 +86,39 @@ Phases (any failure exits non-zero and prints no result line):
      left weak odometry edges, the last revisit lies within 0.02 m of the
      truth; print the detector's ms per keyframe and the ms per closing
      call;
- 17. check that no module of JAX or of the JAX package was imported.
+ 17. the reference CLI's bare defaults (BA on its thread, on a
+     low-priority CUDA stream, the frame's work on a high-priority one;
+     loop detection on its thread) against the same command line with
+     --sequential_ba, in turns (sequential, defaults, defaults,
+     sequential), each with the gates of 7 (ATE, map, keyframes, PLY), and
+     for the defaults: ATE RMSE <= 1.18 mm (the formula's 640x480 value),
+     the BA iterations ran on the thread and no BA call on the main thread,
+     the streams' priorities, both threads stopped, the loops line "Loops
+     closed: 0, ignored: 0"; print warm frames/s and the CLI's wall time
+     (the BA thread's drain at the end included) of all four;
+ 18. the defaults with --optimize_intrinsics --keyframe_interval 5: the
+     gates of 17 and 11's intrinsics gate (exported depth intrinsics within
+     0.1 px of the dataset's camera, and moved); the BA thread published
+     its calibration at least once; print how many snapshots the
+     front-end took at a frame's start (it depends on the threads'
+     timing); then the hand-off in a fixed order, off the CLI: 11 frames
+     quiesced after each, one BA-thread iteration with self-calibration,
+     one more frame, whose preprocessing and odometry must read the
+     published snapshot, equal to the BA thread's calibration, and whose
+     kernel outputs must equal the plain version's with it (error 0.0);
+ 19. the defaults with --pyramid_level_for_depth 1
+     --pyramid_level_for_color 1, 21 frames: ATE <= 2.77 mm, map median <
+     1e-3 m, the map at 320x240, and the kernel held against its plain
+     version on a 320x240 frame of the run with its calibration;
+ 20. the same with --median_filter_and_densify_iterations 1;
+ 21. the same with --sequential_ba --export_reconstruction (cell 1): the
+     dense cloud holds more than twice the surfels, finite, median |error|
+     < 1e-3 m, and the back-end has its own calibration object back;
+ 22. the odometry-only run of 5 without and with the frame prefetcher, in
+     turns (without, with, with, without): print "Preprocessing" warm mean
+     ms and warm frames/s of each;
+ 23. check that no module of JAX or of the JAX package was imported.
+Phases 17-22 run after 14, on its dataset, and before 15.
 
 The next-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA device and no network.
@@ -115,6 +147,8 @@ KEYFRAME_INTERVAL_BA = 10
 # With a keyframe every 5 frames the run reaches 11 keyframes: the schedule
 # of --optimize_intrinsics starts with the tenth.
 KEYFRAME_INTERVAL_SELF_CALIBRATION = 5
+# The item-5 input paths run over the first 21 frames (3 keyframes).
+INPUT_PATH_FRAMES = 21
 # The self-calibration checks' perturbation of the depth camera (fx, fy, cx,
 # cy, in pixels) and their gates: the reference's, for the recovery on the
 # multi-view plane map; for a run on a true camera, how far the exported
@@ -398,6 +432,17 @@ def run_cli(argv, label: str, launches_expected: int = FRAMES) -> dict:
   Timing.set_device_accurate(False)
   Timing.reset()
   gc.collect()   # an earlier run's system must not count into this peak
+  # Nor the cuBLAS workspaces that PyTorch keeps for the life of the
+  # process, one per (thread's handle, stream): every run under parallel BA
+  # brings two new ones.
+  clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+  if clear_workspaces is not None:
+    clear_workspaces()
+  left = torch.cuda.memory_allocated()
+  if left:
+    alive = sum(isinstance(o, original) for o in gc.get_objects())
+    print(f"{label}: {left} bytes still allocated before the run (in its "
+          f"peak); {alive} BadSlam objects alive")
   torch.cuda.reset_peak_memory_stats()
   out = io.StringIO()
   system.BadSlam = recording_bad_slam
@@ -433,9 +478,10 @@ def check_trajectory(poses_path: str, data: str, label: str) -> float:
   return ate
 
 
-def print_phases(stats, phases, skip) -> None:
+def print_phases(stats, phases, skip, how: str = "device-accurate") -> None:
   """count, mean and median ms of each phase; ``skip`` maps a phase to the
-  number of leading (cold) samples left out."""
+  number of leading (cold) samples left out; ``how`` says what the spans
+  measure."""
   for phase in phases:
     if phase not in stats:
       print(f"phase {phase}: count 0")
@@ -444,7 +490,7 @@ def print_phases(stats, phases, skip) -> None:
     warm = s.samples[skip.get(phase, 0):] or s.samples
     print(f"phase {phase}: count {s.count}, warm mean "
           f"{statistics.mean(warm) * 1e3!r} ms, median "
-          f"{statistics.median(warm) * 1e3!r} ms (device-accurate)")
+          f"{statistics.median(warm) * 1e3!r} ms ({how})")
 
 
 def run_main_path(workdir: str, data: str) -> dict:
@@ -1205,6 +1251,336 @@ def check_bow_blackout(device) -> dict:
   return {"launches": launches, "frames": len(traj)}
 
 
+def bare_argv(workdir: str, data: str, tag: str) -> list:
+  """The reference CLI's bare defaults (BA on its thread, loop detection on
+  its thread, playback paced to 30 FPS), exporting into files named by
+  ``tag``."""
+  return [data,
+          "--export_poses", os.path.join(workdir, f"poses_{tag}.txt"),
+          "--export_point_cloud", os.path.join(workdir, f"map_{tag}.ply"),
+          "--export_final_timings", os.path.join(workdir,
+                                                 f"timings_{tag}.txt")]
+
+
+@contextlib.contextmanager
+def ba_thread_record():
+  """Counts, over one run, the calibrations the BA thread published and the
+  snapshots the front-end took, and records the two streams'
+  priorities."""
+  from badslam_tpu_torch.slam import system
+  cls = system.BadSlam
+  publish, take = cls._publish_calibration, cls._frame_calibration
+  record = {"published": 0, "taken": 0, "priorities": None}
+
+  def counted_publish(self):
+    record["published"] += 1
+    return publish(self)
+
+  def counted_take(self):
+    before = self._front_calibration
+    out = take(self)
+    if self._parallel and before is not None and out is not before:
+      record["taken"] += 1
+    if self._main_stream is not None:
+      record["priorities"] = (self._main_stream.priority,
+                              self._ba_stream.priority)
+    return out
+
+  cls._publish_calibration, cls._frame_calibration = (counted_publish,
+                                                      counted_take)
+  try:
+    yield record
+  finally:
+    cls._publish_calibration, cls._frame_calibration = publish, take
+
+
+def wall_seconds(stdout: str, label: str) -> float:
+  """The CLI's own 'Done: N frames in X s' (the BA thread's drain at the
+  end included)."""
+  done = re.search(r"Done: \d+ frames in ([0-9.]+) s", stdout)
+  if not done:
+    fail(f"{label}: no Done line")
+  return float(done.group(1))
+
+
+def check_threaded_run(run: dict, record: dict, label: str) -> dict:
+  """What a run with the BA thread must show: no sequential BA call, BA
+  iterations on the thread, the two streams at their priorities, both
+  threads gone, and the loops line."""
+  stats = run["stats"]
+  slam = run["slam"]
+  thread_iterations = (stats["BA thread iteration"].count
+                       if "BA thread iteration" in stats else 0)
+  if "Bundle adjustment" in stats or thread_iterations < 1:
+    fail(f"{label}: BA thread iterations {thread_iterations}, sequential "
+         f"BA calls {stats.get('Bundle adjustment')}")
+  if record["priorities"] is None or not (
+      record["priorities"][0] < record["priorities"][1]):
+    fail(f"{label}: stream priorities (main, BA) {record['priorities']}")
+  if slam._ba_thread is not None or (
+      slam.loop_detector is None or slam.loop_detector._detection_thread
+      is not None):
+    fail(f"{label}: a thread outlived the run, or no loop detector")
+  found = re.findall(r"Loops closed: (\d+), ignored: (\d+)", run["stdout"])
+  if found != [("0", "0")]:
+    fail(f"{label}: loops line {found}")
+  s = stats["BA thread iteration"]
+  print(f"{label}: {thread_iterations} BA thread iterations, mean "
+        f"{s.total / s.count * 1e3!r} ms each (host wall time on the BA "
+        f"thread); stream priorities (main, BA) {record['priorities']}; "
+        f"loops line {found[0]}")
+  return {"thread_iterations": thread_iterations}
+
+
+def run_defaults_path(workdir: str, data: str, ba_path: dict) -> dict:
+  """Phase 17: the bare defaults against --sequential_ba, the same flags
+  otherwise, in turns (sequential, defaults, defaults, sequential)."""
+  out = {"launches": 0, "fps": {"defaults": [], "sequential": []},
+         "wall_s": {"defaults": [], "sequential": []}}
+  for turn, name in enumerate(("sequential", "defaults", "defaults",
+                               "sequential")):
+    label = f"{name} run {turn + 1}"
+    tag = f"{name}{turn}"
+    argv = bare_argv(workdir, data, tag)
+    if name == "sequential":
+      argv.append("--sequential_ba")
+    with ba_thread_record() as record:
+      run = run_cli(argv, label)
+    checked = check_map_run(
+        run, label, data, os.path.join(workdir, f"poses_{tag}.txt"),
+        os.path.join(workdir, f"map_{tag}.ply"), KEYFRAME_INTERVAL_BA)
+    if name == "defaults":
+      check_threaded_run(run, record, label)
+      if not checked["ate"] <= ATE_FORMULA_640_M:
+        fail(f"{label}: ATE {checked['ate']} m > {ATE_FORMULA_640_M} m")
+    fps = warm_frames_per_s(run)
+    wall = wall_seconds(run["stdout"], label)
+    out["fps"][name].append(fps)
+    out["wall_s"][name].append(wall)
+    out["launches"] += run["launches"]
+    print(f"{label}: ATE RMSE {checked['ate']!r} m (gate "
+          f"{ATE_FORMULA_640_M!r} m for the defaults), warm frames/s "
+          f"{fps!r}, the CLI's wall time for {FRAMES} frames {wall!r} s, "
+          f"peak device memory {run['peak']} bytes")
+    print_phases(run["stats"], ("Preprocessing", "Odometry",
+                                "Keyframe creation", "Bundle adjustment",
+                                "BA thread iteration"),
+                 {"Preprocessing": 2, "Odometry": 2, "Keyframe creation": 1},
+                 how="host wall time, no device barriers")
+    del run
+  print(f"defaults against --sequential_ba, warm frames/s in turns: "
+        f"defaults {out['fps']['defaults']}, sequential "
+        f"{out['fps']['sequential']}; wall s: defaults "
+        f"{out['wall_s']['defaults']}, sequential "
+        f"{out['wall_s']['sequential']}; phase 7 (device-accurate timings) "
+        f"{ba_path['frames_per_s']!r}")
+  return out
+
+
+def run_threaded_self_calibration(workdir: str, data: str) -> dict:
+  """Phase 18: the defaults with --optimize_intrinsics --keyframe_interval
+  5: self-calibration on the BA thread, its calibration handed to the
+  front-end's stream."""
+  label = "threaded self-calibration"
+  calibration = os.path.join(workdir, "threaded_calibration")
+  argv = bare_argv(workdir, data, "threaded_selfcal") + [
+      "--optimize_intrinsics", "--keyframe_interval",
+      str(KEYFRAME_INTERVAL_SELF_CALIBRATION), "--export_calibration",
+      calibration]
+  with ba_thread_record() as record:
+    run = run_cli(argv, label)
+  checked = check_map_run(
+      run, label, data, os.path.join(workdir, "poses_threaded_selfcal.txt"),
+      os.path.join(workdir, "map_threaded_selfcal.ply"),
+      KEYFRAME_INTERVAL_SELF_CALIBRATION)
+  check_threaded_run(run, record, label)
+  slam = run["slam"]
+  cam = slam.rgbd_video.depth_camera
+  true = np.array([float(cam.fx), float(cam.fy), float(cam.cx) - 0.5,
+                   float(cam.cy) - 0.5])
+  drift = float(np.abs(read_depth_intrinsics(calibration) - true).max())
+  gate = CLI_INTRINSICS_GATE_PX["alternating"]
+  print(f"{label}: ATE RMSE {checked['ate']!r} m; {record['published']} "
+        f"calibrations published by the BA thread, {record['taken']} taken "
+        f"by the front-end at a frame's start; exported depth intrinsics "
+        f"{drift!r} px from the dataset's camera (gate {gate} px); max "
+        f"|cfactor| {float(slam.calibration.cfactor.abs().max())!r}; warm "
+        f"frames/s {warm_frames_per_s(run)!r}")
+  if record["published"] < 1 or not 0.0 < drift <= gate:
+    fail(f"{label}: {record['published']} publications, intrinsics "
+         f"{drift} px from the camera")
+  device, launches = slam.device, run["launches"]
+  del run, slam
+  return {"launches": launches + run_handoff(data, device),
+          "published": record["published"],
+          "taken": record["taken"]}
+
+
+def run_handoff(data: str, device) -> int:
+  """Phase 18's second half: the hand-off in a fixed order, off the CLI.
+  BadSlam with the defaults and --optimize_intrinsics, 11 frames quiesced
+  after each (2 keyframes), then one BA-thread iteration with
+  self-calibration, and one more frame: that frame's preprocessing and
+  odometry, on the main stream, read the BA thread's new calibration, and
+  the kernel's outputs equal the plain version's with it. Returns the
+  kernel's launches."""
+  import torch
+  from badslam_tpu_torch import main as port_main
+  from badslam_tpu_torch.io import dataset as dataset_io
+  from badslam_tpu_torch.ops import fused_preprocess as fp
+  from badslam_tpu_torch.slam.system import BadSlam
+  label = "calibration hand-off"
+  args = port_main.build_parser().parse_args([data, "--optimize_intrinsics"])
+  config = port_main.config_from_args(args)
+  video = dataset_io.load_tum_dataset(
+      data, None, raw_to_float_depth=config.raw_to_float_depth)
+  slam = BadSlam(config, video, device=device)
+  frames = []
+  preprocess = slam.preprocess_frame
+
+  def kept(*args, **kwargs):
+    frames.append(preprocess(*args, **kwargs))
+    return frames[-1]
+
+  slam.preprocess_frame = kept
+  n = KEYFRAME_INTERVAL_BA + 1
+  fp.fused_depth_preprocess.launches = 0
+  try:
+    for i in range(n):
+      slam.process_frame(i)
+      slam.quiesce()
+    before = slam.calibration.depth_intr.clone()
+    slam.start_parallel_iterations(1, True, True)
+    slam.quiesce()
+    slam.process_frame(n)
+  finally:
+    slam.stop_ba_thread_and_wait()
+  launches = fp.fused_depth_preprocess.launches
+  calib = slam.calibration
+  moved = float((calib.depth_intr - before).abs().max())
+  front = slam._front_calibration
+  if (launches != n + 1 or front is calib or moved <= 0.0
+      or not torch.equal(front.depth_intr, calib.depth_intr)
+      or not torch.equal(front.cfactor, calib.cfactor)):
+    fail(f"{label}: launches {launches}, depth intrinsics moved {moved}, "
+         f"the front-end's snapshot is the BA object: {front is calib}")
+  cfg = slam.config
+  frame = frames[-1]
+  want = fp.fused_depth_preprocess_reference(
+      frame.raw_depth, calib, sigma_xy=cfg.bilateral_filter_sigma_xy,
+      sigma_inv_depth=cfg.bilateral_filter_sigma_inv_depth,
+      radius_factor=cfg.bilateral_filter_radius_factor,
+      max_depth=cfg.max_depth)
+  err = max(float((g - w).abs().max()) for g, w in zip(
+      (frame.depth, frame.normals, frame.radius_sq), want))
+  print(f"{label}: one BA-thread intrinsics step moved the depth "
+        f"intrinsics by {moved!r} px; frame {n}, on the main stream, read "
+        f"the published snapshot; its kernel outputs against the plain "
+        f"version with the BA thread's calibration: max_abs_err {err!r}")
+  if err != 0.0:
+    fail(f"{label}: the frame did not compute with the new calibration")
+  return launches
+
+
+def run_input_paths(workdir: str, data: str, frames: int) -> dict:
+  """Phases 19-21: one run each with the pyramid-level inputs, the median
+  filter and the dense reconstruction export, over the first ``frames``
+  frames with the defaults; the kernel held once more against its plain
+  version on a half-resolution frame with the run's calibration."""
+  from badslam_tpu_torch.io import ply
+  from badslam_tpu_torch.io.dataset import read_tum_trajectory
+  from badslam_tpu_torch.utils import synthetic
+  _, gt = read_tum_trajectory(os.path.join(data, "groundtruth.txt"))
+  out = {"launches": 0, "max_abs_err": 0.0}
+  cases = (("pyramid level 1", ["--pyramid_level_for_depth", "1",
+                                "--pyramid_level_for_color", "1"]),
+           ("median filter", ["--median_filter_and_densify_iterations",
+                              "1"]),
+           # With BA on its thread the scheme counter never advances, so
+           # the export's BA creates no surfel (in the JAX package too:
+           # ROADMAP queue 3, R10); it densifies after sequential BA.
+           ("reconstruction export", [
+               "--sequential_ba", "--export_reconstruction",
+               os.path.join(workdir, "dense.ply")]))
+  for label, flags in cases:
+    tag = label.split()[0]
+    argv = bare_argv(workdir, data, tag) + flags + [
+        "--end_frame", str(frames - 1)]
+    run = run_cli(argv, label, launches_expected=frames)
+    out["launches"] += run["launches"]
+    _, est = read_tum_trajectory(os.path.join(workdir, f"poses_{tag}.txt"))
+    if est.shape != (frames, 4, 4) or not np.isfinite(est).all():
+      fail(f"{label}: trajectory {est.shape}")
+    ate = ate_rmse(est[:, :3, 3].astype(np.float64),
+                   gt[:frames, :3, 3].astype(np.float64))
+    pos, _, _ = ply.load_point_cloud_ply(
+        os.path.join(workdir, f"map_{tag}.ply"))
+    err = synthetic.surfel_map_error(pos)["median_abs_m"]
+    line = (f"{label}: {frames} frames, ATE RMSE {ate!r} m (gate "
+            f"{ATE_GATE_M} m), {len(pos)} surfels, map median |error| "
+            f"{err!r} m (gate {MAP_MEDIAN_GATE_M} m)")
+    if not ate <= ATE_GATE_M or not err < MAP_MEDIAN_GATE_M:
+      fail(line)
+    slam = run["slam"]
+    if tag == "pyramid":
+      if slam.direct_ba.depth_size != (320, 240):
+        fail(f"{label}: depth size {slam.direct_ba.depth_size}")
+      cfg = slam.config
+      frame = slam.preprocess_frame(frames // 2)
+      out["max_abs_err"] = max(out["max_abs_err"], compare_kernel(
+          f"320x240 pyramid-level frame {frames // 2} with the run's "
+          f"calibration", frame.raw_depth, slam.calibration,
+          dict(sigma_xy=cfg.bilateral_filter_sigma_xy,
+               sigma_inv_depth=cfg.bilateral_filter_sigma_inv_depth,
+               radius_factor=cfg.bilateral_filter_radius_factor,
+               max_depth=cfg.max_depth)))
+    if tag == "reconstruction":
+      dense, _, _ = ply.load_point_cloud_ply(os.path.join(workdir,
+                                                          "dense.ply"))
+      dense_err = synthetic.surfel_map_error(dense)["median_abs_m"]
+      line += (f"; reconstruction at cell 1: {len(dense)} surfels, median "
+               f"|error| {dense_err!r} m")
+      if (not len(dense) > 2 * len(pos) or not np.isfinite(dense).all()
+          or not dense_err < MAP_MEDIAN_GATE_M
+          or slam.direct_ba.calibration is not slam.calibration):
+        fail(line)
+    print(line)
+    del run, slam
+  return out
+
+
+def compare_prefetch(workdir: str, data: str) -> dict:
+  """Phase 22: the odometry-only run (phase 5's flags) without and with
+  the frame prefetcher, in turns (without, with, with, without): the
+  "Preprocessing" phase's warm mean."""
+  from badslam_tpu_torch.io import dataset as dataset_io
+  argv = [data, "--keyframe_interval", "5", "--num_scales", "5",
+          "--max_depth", "5.0", "--max_num_ba_iterations_per_keyframe", "0",
+          "--no_loop_detection", "--sequential_ba", "--restrict_fps_to", "0",
+          "--device_accurate_timings", "--quiet"]
+  enable = dataset_io.RGBDVideo.enable_prefetch
+  ms = {"without": [], "with": []}
+  fps = {"without": [], "with": []}
+  launches = 0
+  for name in ("without", "with", "with", "without"):
+    if name == "without":
+      dataset_io.RGBDVideo.enable_prefetch = lambda self, **kwargs: False
+    try:
+      run = run_cli(argv, f"odometry-only {name} prefetcher")
+    finally:
+      dataset_io.RGBDVideo.enable_prefetch = enable
+    launches += run["launches"]
+    warm = run["stats"]["Preprocessing"].samples[2:]
+    ms[name].append(statistics.mean(warm) * 1e3)
+    fps[name].append(warm_frames_per_s(run))
+    del run
+  print(f"Preprocessing warm mean ms, odometry-only, in turns: without the "
+        f"prefetcher {ms['without']}, with it {ms['with']} (page-locked, "
+        f"non-blocking copies); warm frames/s without {fps['without']}, "
+        f"with {fps['with']}")
+  return {"launches": launches, "ms": ms}
+
+
 def main() -> int:
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -1251,18 +1627,26 @@ def main() -> int:
     joint = run_self_calibration_path(workdir, data, use_pcg=True)
     restored = check_round_trip(workdir, data, self_calibration)
     loop_cli = run_loop_detection_cli(workdir, data, ba_path)
+    defaults = run_defaults_path(workdir, data, ba_path)
+    threaded = run_threaded_self_calibration(workdir, data)
+    inputs = run_input_paths(workdir, data, INPUT_PATH_FRAMES)
+    prefetch = compare_prefetch(workdir, data)
   config2 = check_config2(device)
   blackout = check_bow_blackout(device)
-  # The kernel's launches on the main paths: one per frame of each of the
-  # five CLI runs and of the two loop scenes, and the restored keyframes of
-  # the state round trip.
+  # The kernel's launches on the main paths: one per frame of each CLI run
+  # and of the two loop scenes, and the restored keyframes of the state
+  # round trip.
   launches = (path["launches"] + ba_path["launches"]
               + self_calibration["launches"] + joint["launches"] + restored
-              + loop_cli["launches"] + config2["launches"]
+              + loop_cli["launches"] + defaults["launches"]
+              + threaded["launches"] + inputs["launches"]
+              + prefetch["launches"] + config2["launches"]
               + blackout["launches"])
-  frames = 5 * FRAMES + 11 + blackout["frames"]
+  frames = (14 * FRAMES + 3 * INPUT_PATH_FRAMES
+            + (KEYFRAME_INTERVAL_BA + 2) + 11 + blackout["frames"])
   kernel["max_abs_err"] = max(kernel["max_abs_err"],
-                              self_calibration["max_abs_err"])
+                              self_calibration["max_abs_err"],
+                              inputs["max_abs_err"])
   foreign = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "badslam_tpu"))
   if foreign:

@@ -104,7 +104,7 @@ def test_frame_to_frame_h_b_and_cost_match_jax(pair, level, residual_type,
   scaling = float(2 ** level)
   jcam = pair["cam"].scaled(1.0 / scaling)
   calib = DepthCalibration.from_numpy(pair["intr"], A, pair["cfactor"],
-                                      BASELINE_FX, CELL, (W, H))
+                                      BASELINE_FX, CELL, (W, H), "cpu")
   tcam = calib.camera().scaled(1.0 / scaling)
   # A pose near the truth, so most pixels associate.
   tracked_T_base = np.linalg.inv(pair["base_T_tracked"]).astype(np.float32)
@@ -133,7 +133,7 @@ def test_frame_to_frame_h_b_and_cost_match_jax(pair, level, residual_type,
 def test_track_frame_pairwise_matches_jax(pair):
   (jbase, tbase), (jtracked, ttracked) = _pyramids(pair, 4)
   calib = DepthCalibration.from_numpy(pair["intr"], A, pair["cfactor"],
-                                      BASELINE_FX, CELL, (W, H))
+                                      BASELINE_FX, CELL, (W, H), "cpu")
   # Hypotheses as the motion model makes them: one good, one poor.
   init_1 = pair["base_T_tracked"].copy()
   init_1[:3, 3] += [2e-3, 1e-3, -1e-3]
@@ -157,7 +157,7 @@ def test_calibration_carries_over_from_the_reference_state(pair):
   system functions run on the same arrays (a != 0, random cfactor)."""
   cam = pair["cam"]
   calib = DepthCalibration.from_numpy(pair["intr"], A, pair["cfactor"],
-                                      BASELINE_FX, CELL, (W, H))
+                                      BASELINE_FX, CELL, (W, H), "cpu")
   np.testing.assert_array_equal(calib.depth_intr.numpy(), pair["intr"])
   np.testing.assert_array_equal(calib.cfactor.numpy(), pair["cfactor"])
   assert float(calib.a) == A and float(calib.baseline_fx) == BASELINE_FX

@@ -69,7 +69,7 @@ def _assert_plain_chain_matches_jax(width, height, cfactor_kind, kw):
   jax_chain = (fa, nn, rr)
 
   calib = DepthCalibration.from_numpy(intr, a, cfactor, 40.0, CELL,
-                                      (width, height))
+                                      (width, height), "cpu")
   port = fused_preprocess.fused_depth_preprocess(torch.from_numpy(d), calib,
                                                  **kw)
   assert port[0].shape == (height, width)
@@ -96,7 +96,7 @@ def test_plain_chain_matches_jax_at_bilateral_radius_2(cfactor_kind):
 def test_wrapper_runs_plain_chain_on_cpu_and_refuses_other_devices():
   cam, d, intr, a, cfactor = _inputs(160, 120, "random")
   calib = DepthCalibration.from_numpy(intr, a, cfactor, 40.0, CELL,
-                                      (160, 120))
+                                      (160, 120), "cpu")
   raw = torch.from_numpy(d)
   before = fused_preprocess.fused_depth_preprocess.launches
   got = fused_preprocess.fused_depth_preprocess(raw, calib, **KW)

@@ -275,17 +275,16 @@ def test_cli_ba_options_run(dataset, tmp_path, flags, map_gate):
 
 
 @pytest.mark.parametrize("flags", [
-    [],  # the defaults run parallel BA, which is refused
-    ["--export_reconstruction", "x"],
+    ["--pipelined_frontend"],
+    ["--pipelined_concurrent_ba"],
     ["--render_preview", "x"],
     ["--mesh_devices", "2"],
     ["--prewarm"],
-    ["--no_pose_estimation"],
+    ["--profile_dir", "x"],
 ])
 def test_unported_flags_are_refused(dataset, flags):
-  base = [] if not flags else [
-      "--max_num_ba_iterations_per_keyframe", "0", "--no_loop_detection",
-      "--sequential_ba"]
+  base = ["--max_num_ba_iterations_per_keyframe", "0", "--no_loop_detection",
+          "--sequential_ba"]
   with pytest.raises(SystemExit, match="ROADMAP"):
     port_main.main([dataset, "--device", "cpu", *base, *flags])
 
