@@ -45,8 +45,10 @@ def _set(dst: torch.Tensor, values) -> None:
 def save_state(path: str, slam) -> None:
   """Snapshot the full SLAM state of a BadSlam system to one .npz file.
   Under parallel BA the BA thread is first left idle with every queued
-  keyframe registered (``BadSlam.quiesce``)."""
+  keyframe registered (``BadSlam.quiesce``); a pipelined run first writes
+  its device trajectory into the video (``finalize_pipelined``)."""
   slam.quiesce()
+  slam.finalize_pipelined()
   ba = slam.direct_ba
   calib = ba.calibration
   kf = {name: t.cpu().numpy() for name, t in ba.kf._asdict().items()
@@ -222,6 +224,14 @@ def load_state(path: str, slam) -> None:
   slam.num_planned_ba_iterations = int(data["num_planned_ba_iterations"])
   laba = data["last_active_in_ba_iteration"]
   ba.last_active_in_ba_iteration[: len(laba)] = laba
+
+  # A pipelined resume restarts the device state machine at constant
+  # position from the restored base keyframe: a snapshot holds no device
+  # history, and one identity entry is the motion model's reset at a
+  # keyframe. The frames before the snapshot keep their restored poses.
+  if slam._pipelined and slam.base_kf_index is not None:
+    slam.pipelined_state.base_slot = slam.base_kf_index
+    slam.pipelined_state.hist_n = 1
 
 
 # --- calibration files (io.h:66-74) ---

@@ -1,9 +1,7 @@
 """Loop detection and closure.
 
 Port of ``badslam_tpu/loop/detector.py`` (loop_detector.{h,cc} of the
-original BAD SLAM) without the pipelined front-end's device closure
-(``_verify_and_close_device``, ``resolve_pending_device_events``; ROADMAP
-queue 1 item 10):
+original BAD SLAM):
   * features: ORB (FAST threshold 20 and rotated BRIEF) on the gray
     keyframe image, with each keypoint's depth (loop_detector.cc:97-128,
     744-757);
@@ -27,6 +25,11 @@ queue 1 item 10):
 Everything up to RANSAC runs on the host (cv2 and numpy), on a detection
 thread of its own unless ``parallel`` is False; the closing runs on the
 thread that calls ``add_keyframe``, the main thread under sequential BA.
+
+Under the pipelined front-end everything after RANSAC is one device program
+(``loop/device_closure.verify_and_close``): the event reads
+``device-pending`` until ``resolve_pending_device_events``, which
+``BadSlam.finalize_pipelined`` calls, reads the outcomes.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from badslam_tpu_torch.loop.trajectory_deformation import (
     extrapolate_and_interpolate_keyframe_pose_changes,
     remember_keyframe_poses)
 from badslam_tpu_torch.utils import logging as log
+from badslam_tpu_torch.utils.transfer import to_device
 
 NSS_ALPHA = 0.15                 # loop_detector.cc:161
 FAST_THRESHOLD = 20              # loop_detector.cc:123
@@ -109,6 +113,10 @@ class LoopDetector:
     # to every later pose graph so that verified closures stay pinned (the
     # original rebuilds each graph with the newest loop edge only).
     self.applied_loop_edges: List[tuple] = []
+    # The pipelined front-end's twins: the device ring of applied loop
+    # edges, and the device closures whose outcome is not read yet.
+    self._device_loop_edges: Optional[tuple] = None
+    self._pending_device_results: List[device_closure.DeviceClosureResult] = []
 
     # Retrieval: the vocabulary, once trained, and its inverted file, whose
     # entry ids are aligned with self.entries (holes are dead entries).
@@ -434,6 +442,12 @@ class LoopDetector:
       return ev(False, "RANSAC failed", int(inliers.sum()))
     n_inliers = int(inliers.sum())
 
+    if slam.config.pipelined_frontend:
+      # Everything past RANSAC runs as one device program; the outcome
+      # stays on the device until finalize_pipelined.
+      return self._verify_and_close_device(cur, old, old_T_cur, cur_pts,
+                                           n_inliers, slam)
+
     # Direct refinement against the matched keyframe and its next and
     # previous neighbours. The pose state is read under the BA lock.
     ba = slam.direct_ba
@@ -568,3 +582,105 @@ class LoopDetector:
     event = ev(True, "closed", n_inliers)
     event.measured_t_norm = float(np.linalg.norm(cur_T_old_avg[:3, 3]))
     return event
+
+  def _verify_and_close_device(self, cur: KeyframeEntry, old: KeyframeEntry,
+                               old_T_cur: np.ndarray, cur_pts: np.ndarray,
+                               n_inliers: int, slam) -> LoopClosureEvent:
+    """The pipelined front-end's verification and closure: the early gates
+    read the store's host mirrors, then one device program refines, gates
+    and applies the pose graph or not (``device_closure.verify_and_close``).
+    The event's reason is ``device-pending`` until
+    ``resolve_pending_device_events``; the caller plans the BA iterations
+    that repair the map after it."""
+    def ev(applied, reason, inl=0):
+      return LoopClosureEvent(cur.kf_slot, old.kf_slot, inl, applied, reason)
+
+    ba = slam.direct_ba
+    k = ba.keyframe_count
+    valid = ba._kf_valid_host
+    if not (0 <= old.kf_slot < k and valid[old.kf_slot]):
+      return ev(False, "matched keyframe no longer valid")
+    nxt = next((i for i in range(old.kf_slot + 1, k) if valid[i]), None)
+    if nxt is None:
+      return ev(False, "no next keyframe for verification", n_inliers)
+    prv = next((i for i in range(old.kf_slot - 1, -1, -1) if valid[i]), None)
+    if prv is None:
+      prv = next((i for i in range(nxt + 1, k) if valid[i]), None)
+      if prv is None:
+        return ev(False, "no second keyframe for verification", n_inliers)
+
+    # The keypoints, padded to a fixed count.
+    cap = device_closure.KEYPOINT_BUCKET
+    n = min(len(cur_pts), cap)
+    pts = np.zeros((cap, 3), np.float32)
+    pts[:n] = cur_pts[:n]
+    mask = np.zeros((cap,), bool)
+    mask[:n] = True
+    # Odometry edges between consecutive valid slots, padded to capacity - 1
+    # with weight-0 self-edges (zero residual, zero Jacobian rows).
+    slots = [i for i in range(k) if valid[i]]
+    e_cap = max(1, ba.kf.capacity - 1)
+    ei = np.zeros((e_cap,), np.int64)
+    ej = np.zeros((e_cap,), np.int64)
+    w = np.zeros((e_cap,), np.float32)
+    for idx, (a_s, b_s) in enumerate(zip(slots[:-1], slots[1:])):
+      ei[idx], ej[idx], w[idx] = a_s, b_s, 1.0
+
+    dev = ba.device
+    if self._device_loop_edges is None:
+      self._device_loop_edges = device_closure.empty_loop_edges(dev)
+    cam = self.camera
+    calib = ba.calibration
+    res = device_closure.verify_and_close(
+        ba.kf.global_T_frame, ba.kf.depth,
+        lambda base, tracked, init: slam.track_keyframe_pair_device(
+            base, tracked, init, transfer_free=True),
+        calib.depth_intr, calib.baseline_fx,
+        cur.kf_slot, old.kf_slot, nxt, prv,
+        to_device(np.asarray(old_T_cur, np.float32), dev),
+        to_device(pts, dev), to_device(mask, dev),
+        (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy)),
+        to_device(ei, dev), to_device(ej, dev), to_device(w, dev),
+        slam.pipelined_state.edge_weight, self._device_loop_edges)
+    ba.kf = ba.kf._replace(global_T_frame=res.global_T_frame)
+    self._device_loop_edges = (res.loop_ei, res.loop_ej, res.loop_Z,
+                               res.loop_w, res.loop_count)
+    self._pending_device_results.append(res)
+    return ev(False, "device-pending", n_inliers)
+
+  def resolve_pending_device_events(self):
+    """Read the device closures' outcomes (the pipelined run's finalize,
+    in one read) and settle their events and the loop counters: a pending
+    event was counted as ignored by add_keyframe."""
+    if not self._pending_device_results:
+      return
+    log.info(f"resolving {len(self._pending_device_results)} pending "
+             "device closure results")
+    rows = torch.stack([torch.stack([
+        r.applied.to(torch.float32), r.ba_enough.to(torch.float32),
+        r.consistent.to(torch.float32), r.depth_sane.to(torch.float32),
+        r.avg_px.to(torch.float32), r.t_norm.to(torch.float32)])
+        for r in self._pending_device_results]).cpu().numpy()
+    pending = iter(rows)
+    for event in self.events:
+      if event.reason != "device-pending":
+        continue
+      applied, ba_enough, consistent, depth_sane, avg_px, t_norm = (
+          next(pending))
+      if applied:
+        event.applied = True
+        event.reason = "closed"
+        event.measured_t_norm = float(t_norm)
+        self.num_loops_ignored -= 1
+        self.num_loops_closed += 1
+        log.info(f"loop closed on device: kf {event.current_slot} -> "
+                 f"{event.matched_slot} ({event.inlier_count} inliers)")
+      elif ba_enough:
+        event.reason = f"BA will absorb it (avg {float(avg_px):.2f} px)"
+      elif not consistent:
+        event.reason = "refined estimates disagree"
+      elif not depth_sane:
+        event.reason = "aligned depth fields disagree"
+      else:
+        event.reason = "rejected on device"
+    self._pending_device_results = []

@@ -42,7 +42,7 @@ def optimize_poses(T0: torch.Tensor, edges_i: torch.Tensor,
 
   jacobian = torch.func.jacfwd(residuals, has_aux=True)
   x = torch.zeros((k, 6), dtype=torch.float32, device=T0.device)
-  lm_lambda = torch.tensor(1e-4, dtype=torch.float32, device=T0.device)
+  lm_lambda = torch.full((), 1e-4, dtype=torch.float32, device=T0.device)
   ones = torch.ones(6 * k, dtype=torch.float32, device=T0.device)
   gauge = torch.arange(6 * k, device=T0.device) < 6
   for _ in range(num_iterations):

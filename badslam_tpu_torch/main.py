@@ -320,8 +320,10 @@ def _run_slam(args, config, video, slam) -> int:
     if not args.quiet and frames_done % 50 == 0:
       elapsed = time.perf_counter() - t_start
       # The surfel count is a device read of the map: under parallel BA it
-      # belongs to the BA thread, so it waits for the end of the run.
-      surfels = "n/a" if slam._parallel else slam.direct_ba.surfel_count
+      # belongs to the BA thread, so it waits for the end of the run, and
+      # the pipelined front-end reads nothing in its loop.
+      surfels = ("n/a" if slam._parallel or slam._pipelined
+                 else slam.direct_ba.surfel_count)
       print(f"frame {frame_index}: {frames_done / elapsed:.1f} FPS, "
             f"{slam.direct_ba.keyframe_count} keyframes, "
             f"{surfels} surfels")
@@ -351,6 +353,10 @@ def _run_slam(args, config, video, slam) -> int:
           active_keyframe_window_start=0,
           active_keyframe_window_end=k - 1)
     slam.update_keyframe_poses_in_video()
+
+  # A pipelined run's global poses, after the final BA, so that every frame
+  # anchors to its base keyframe's final pose.
+  slam.finalize_pipelined()
 
   if not args.quiet:
     elapsed = time.perf_counter() - t_start

@@ -79,7 +79,7 @@ def associate_surfels(
   local_pos = se3.transform_points(frame_T_global, pos)
   z_ok = local_pos[..., 2] > 0.0
 
-  unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=pos.dtype, device=pos.device)
+  unit_z = torch.eye(3, dtype=pos.dtype, device=pos.device)[2]
   pxy = depth_cam.project_corner(
       torch.where(z_ok[..., None], local_pos, unit_z))
   in_img = depth_cam.in_image(pxy) & z_ok

@@ -72,8 +72,10 @@ def tangent_projections(
   (cost_function.cuh:115-136): t1 = normal x (|nx| > 0.9 ? ey : ex), scaled
   to 2 * radius; t2 = normal x t1."""
   n = global_normal
-  ex = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
-  ey = torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device)
+  # The axes are made on the device: a tensor built from a host list is a
+  # host-to-device copy, which waits for the stream.
+  eye = torch.eye(3, dtype=n.dtype, device=n.device)
+  ex, ey = eye[0], eye[1]
   axis = torch.where((torch.abs(n[..., 0]) > 0.9)[..., None], ey, ex)
   t1 = torch.linalg.cross(n, axis)
   t1 = t1 * (TANGENT_SCALING * torch.sqrt(

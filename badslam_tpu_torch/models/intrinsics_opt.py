@@ -121,6 +121,7 @@ def _accumulate(
     optimize_depth: bool,
     optimize_color: bool,
     slots: Optional[Sequence[int]] = None,
+    transfer_free: bool = False,
 ):
   """The depth Schur blocks (A, b1, B, D, b2, obs) and the color H and b,
   summed over the valid keyframes in slot order. ``slots`` are their indices
@@ -169,7 +170,8 @@ def _accumulate(
       A = A + Jw.T @ Jg
       b1 = b1 + Jw.T @ rr
       # Lanes outside the mask go to one extra segment that is cut off.
-      plan = plan_segments(torch.where(dm, cell_id, num_cells), num_cells)
+      plan = plan_segments(torch.where(dm, cell_id, num_cells), num_cells,
+                           transfer_free)
       B = B + plan.sum(Jw * jc[:, None])
       D = D + plan.sum(ww * jc * jc)
       b2 = b2 + plan.sum(ww * jc * rr)
@@ -222,11 +224,13 @@ def optimize_intrinsics(
     use_depth_residuals: bool = True,
     use_descriptor_residuals: bool = True,
     slots: Optional[Sequence[int]] = None,
+    transfer_free: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
   """One self-calibration step (OptimizeIntrinsicsCUDA,
   kernel_opt_intrinsics.cc:39-281). Returns new (depth_intr, color_intr, a,
   cfactor); an unknown that is not optimized comes back as the tensor that
-  went in."""
+  went in. ``transfer_free``: sums by cell without a host read
+  (``ops/segment.py``)."""
   optimize_depth = optimize_depth and use_depth_residuals
   optimize_color = optimize_color and use_descriptor_residuals
   depth_intr, a, cfactor = dp.depth_intr, dp.a, dp.cfactor
@@ -237,7 +241,7 @@ def optimize_intrinsics(
                             color_intr[2], color_intr[3])
   A, b1, B, D, b2, obs, cH, cb = _accumulate(
       surfels, kf, dp.camera(), color_cam, dp, optimize_depth,
-      optimize_color, slots)
+      optimize_color, slots, transfer_free)
 
   new_depth_intr, new_a, new_cfactor = depth_intr, a, cfactor
   if optimize_depth:
@@ -253,8 +257,8 @@ def optimize_intrinsics(
     # side, which with the x -= update pulls a toward zero
     # (kernel_opt_intrinsics.cc:146-155).
     prior = A_PRIOR_WEIGHT * A_PRIOR_WEIGHT
-    a_row = torch.zeros((A_ROWS,), dtype=torch.float32, device=A.device)
-    a_row[4] = 1.0
+    # One-hot on a, made on the device.
+    a_row = (torch.arange(A_ROWS, device=A.device) == 4).to(torch.float32)
     A_s = A_s + prior * torch.outer(a_row, a_row)
     b1_s = b1_s + prior * a * a_row
     x1 = _finite_or_zero(_equilibrated_solve(A_s, b1_s))

@@ -159,7 +159,12 @@ def add_keyframe(
 
   def put(old, value):
     out = old.clone()
-    out[i] = value
+    if isinstance(value, torch.Tensor):
+      out[i] = value
+    else:
+      # A Python value assigned through an index is first copied to the
+      # device, which waits for the stream; fill_ takes it as an argument.
+      out[i].fill_(value)
     return out
 
   return kf._replace(
@@ -183,7 +188,7 @@ def frustum_spheres(kf: KeyframeStore, fx_inv, fy_inv, cx_inv, cy_inv,
                     torch.as_tensor(width * fx_inv + cx_inv, device=dev)])
   ys = torch.stack([torch.as_tensor(cy_inv, device=dev),
                     torch.as_tensor(height * fy_inv + cy_inv, device=dev)])
-  dirs = torch.stack([xs.repeat(2), ys.repeat_interleave(2),
+  dirs = torch.stack([xs.repeat(2), ys[:, None].expand(2, 2).reshape(4),
                       torch.ones(4, device=dev)], dim=-1)          # (4, 3)
   pts = torch.cat([dirs[None] * kf.min_depth[:, None, None],
                    dirs[None] * kf.max_depth[:, None, None]], dim=1)

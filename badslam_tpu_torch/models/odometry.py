@@ -33,6 +33,7 @@ from badslam_tpu_torch.models.pose_opt import solve_6x6
 from badslam_tpu_torch.ops import interp
 from badslam_tpu_torch.ops.depth_proc import normals_3d
 from badslam_tpu_torch.ops.pyramid import FramePyramidLevel
+from badslam_tpu_torch.utils.transfer import DonePoll
 
 # convergence_analysis.h:56-63, tuned by the reference for 640x480.
 _SCALE_N_THRESHOLD = 1e-8
@@ -58,7 +59,7 @@ def _project_guarded(cam: PinholeCamera, p: torch.Tensor):
   """Corner projection of points, with points behind the camera replaced by
   (0, 0, 1) first; returns (pxy, z_ok)."""
   z_ok = p[:, 2] > 0.0
-  fallback = torch.tensor([0.0, 0.0, 1.0], dtype=p.dtype, device=p.device)
+  fallback = torch.eye(3, dtype=p.dtype, device=p.device)[2]
   return cam.project_corner(torch.where(z_ok[:, None], p, fallback)), z_ok
 
 
@@ -266,12 +267,15 @@ def track_frame_pairwise(
     convergence_threshold: float = _SCALE_N_THRESHOLD,
     disable_reselection: bool = False,
     residual_type: str = "gradient_xy",
+    transfer_free: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Coarse-to-fine tracking; returns (base_T_frame, residual_count), both
-  on the device. The pyramids hold *calibrated* depth, level 0 = full
-  resolution. ``residual_count`` is the number of associated pixels in the
-  finest scale's last GN iteration; the caller treats near-zero as a
-  tracking failure."""
+  on the device. With ``transfer_free`` the GN loops end without the host
+  waiting for the device (the pipelined front-end), with the same result.
+  The pyramids hold *calibrated* depth, level 0 = full resolution.
+  ``residual_count`` is the number of associated pixels in the finest
+  scale's last GN iteration; the caller treats near-zero as a tracking
+  failure."""
   num_scales = len(base_pyramid)
   finest = 0 if use_pyramid_level_0 else 1
   estimate = base_T_frame_initial_1
@@ -313,16 +317,33 @@ def track_frame_pairwise(
 
     residual_count = torch.zeros((), dtype=torch.int32,
                                  device=estimate.device)
+    if transfer_free:
+      # The reference's while loop with the flag on the device: once a step
+      # converged, the pose and the residual count hold, and the loop ends
+      # at the first poll that sees the flag (utils/transfer.py).
+      poll = DonePoll(estimate.device)
+      done = torch.zeros((), dtype=torch.bool, device=estimate.device)
     for _ in range(max_iterations_per_scale):
-      H, b, residual_count = frame_to_frame_h_b(
+      H, b, n = frame_to_frame_h_b(
           se3.inverse(estimate), base_l, tracked_l, cam_s, baseline_fx,
           threshold_factor, use_depth_residuals, use_descriptor_residuals,
           residual_type)
       x = solve_6x6(H, b)
       x = torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
-      estimate = estimate @ se3.exp(-damping * x)
-      # The one host read of the GN loop.
-      if bool(is_scale_n_converged(x, scaling_factor, convergence_threshold)):
+      converged = is_scale_n_converged(x, scaling_factor,
+                                       convergence_threshold)
+      if not transfer_free:
+        estimate = estimate @ se3.exp(-damping * x)
+        residual_count = n
+        # The one host read of the GN loop.
+        if bool(converged):
+          break
+        continue
+      estimate = torch.where(done, estimate,
+                             estimate @ se3.exp(-damping * x))
+      residual_count = torch.where(done, residual_count, n)
+      done = done | converged
+      if poll.done(done):
         break
 
   return estimate, residual_count

@@ -48,6 +48,7 @@ from badslam_tpu_torch.models.intrinsics_opt import (
 from badslam_tpu_torch.models.keyframes import COVISIBLE_ACTIVE, KeyframeStore
 from badslam_tpu_torch.models.surfels import SurfelStore
 from badslam_tpu_torch.ops.segment import SegmentPlan, plan_segments
+from badslam_tpu_torch.utils.transfer import DonePoll
 
 DIAG_EPSILON = 1e-8     # kDiagEpsilon (kernel_pcg.cu:44)
 N_DINTR = 5             # fx_inv, fy_inv, cx_inv, cy_inv, a
@@ -123,6 +124,12 @@ class _Terms(NamedTuple):
   J2c: Optional[torch.Tensor]
 
 
+def _a_row(device) -> torch.Tensor:
+  """(N_DINTR,) one-hot on ``a``, made on the device (writing 1.0 through an
+  index would copy it from the host and wait for the stream)."""
+  return (torch.arange(N_DINTR, device=device) == 4).to(torch.float32)
+
+
 def _masked(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
   return torch.where(m[:, None] if x.dim() == 2 else m, x, 0.0)
 
@@ -135,6 +142,7 @@ def _compute_terms(
     dp: DepthCalibration,
     use_depth_residuals: bool, use_descriptor_residuals: bool,
     opt_dintr: bool = False, opt_cintr: bool = False,
+    transfer_free: bool = False,
 ) -> _Terms:
   n = surfels.capacity
   dev = surfels.device
@@ -173,7 +181,7 @@ def _compute_terms(
           w_di=_masked(w, dim), Jdi=_masked(Jdi, dim), jcf=_masked(jcf, dim),
           cell_id=cell_id,
           cells=plan_segments(torch.where(dim, cell_id, num_cells),
-                              num_cells))
+                              num_cells, transfer_free))
 
   if use_descriptor_residuals:
     d2c = DepthToColorTransform.between(depth_cam, color_cam)
@@ -225,7 +233,8 @@ class KeyframeTerms:
                depth_cam: PinholeCamera, color_cam: PinholeCamera,
                dp: DepthCalibration, use_depth: bool, use_desc: bool,
                opt_dintr: bool = False, opt_cintr: bool = False,
-               slots: Optional[Sequence[int]] = None):
+               slots: Optional[Sequence[int]] = None,
+               transfer_free: bool = False):
     if slots is None:
       slots = torch.nonzero(
           kf.valid & (kf.activation >= COVISIBLE_ACTIVE)).flatten().tolist()
@@ -233,6 +242,7 @@ class KeyframeTerms:
     self.opt_dintr = opt_dintr and use_depth
     self.opt_cintr = opt_cintr and use_desc
     self._args = (surfels, kf, depth_cam, color_cam, dp, use_depth, use_desc)
+    self.transfer_free = transfer_free
     needed = len(self.slots) * surfels.capacity * TERM_BYTES_PER_SLOT
     if surfels.device.type == "cuda":
       budget = torch.cuda.mem_get_info(surfels.device)[0] // 2
@@ -252,7 +262,7 @@ class KeyframeTerms:
         terms = _compute_terms(
             surfels, kf.global_T_frame[k], kf.depth[k], kf.normals[k],
             kf.intensity[k], depth_cam, color_cam, dp, use_depth, use_desc,
-            self.opt_dintr, self.opt_cintr)
+            self.opt_dintr, self.opt_cintr, self.transfer_free)
         self.computed += 1
         if self.held is not None:
           self.held[k] = terms
@@ -343,8 +353,7 @@ def pcg_init(surfels, kf, depth_cam, color_cam, dp, gauge_index,
     # The weak prior on a: its residual kAPriorWeight * (a + delta_a) adds
     # -w^2 * a to r and w^2 to M on the a row (kernel_pcg.cu:587-591).
     w2a = A_PRIOR_WEIGHT * A_PRIOR_WEIGHT
-    a_row = torch.zeros((N_DINTR,), dtype=torch.float32, device=dev)
-    a_row[4] = 1.0
+    a_row = _a_row(dev)
     r = r._replace(dintr=r.dintr - (w2a * dp.a) * a_row)
     M = M._replace(dintr=M.dintr + w2a * a_row + DIAG_EPSILON,
                    cfac=M.cfac + DIAG_EPSILON)
@@ -419,8 +428,7 @@ def apply_hessian(p: PCGVector, surfels, kf, depth_cam, color_cam, dp,
   g = g + p.scale(DIAG_EPSILON)
   if opt_dintr:
     w2a = A_PRIOR_WEIGHT * A_PRIOR_WEIGHT
-    a_row = torch.zeros((N_DINTR,), dtype=torch.float32, device=dev)
-    a_row[4] = 1.0
+    a_row = _a_row(dev)
     g = g._replace(dintr=g.dintr + (w2a * p.dintr[4]) * a_row)
   return g
 
@@ -432,14 +440,17 @@ def pcg_solve(surfels: SurfelStore, kf: KeyframeStore,
               use_depth: bool = True, use_desc: bool = True,
               opt_dintr: bool = False, opt_cintr: bool = False,
               slots: Optional[Sequence[int]] = None,
-              stats: Optional[dict] = None) -> PCGVector:
+              stats: Optional[dict] = None,
+              transfer_free: bool = False) -> PCGVector:
   """The full PCG solve. Returns the GN update delta, which
   ``apply_pcg_delta`` adds. The loop ends on the host, so each inner
-  iteration reads one flag from the device. ``stats``, if given, receives
-  the inner iterations run, the passes over the keyframes and the keyframe
-  terms computed."""
+  iteration reads one flag from the device; with ``transfer_free`` the flag
+  stays on the device and the delta holds once it is set
+  (utils/transfer.py). ``stats``, if given, receives the inner iterations
+  run (launched, with ``transfer_free``), the passes over the keyframes and
+  the keyframe terms computed."""
   terms = KeyframeTerms(surfels, kf, depth_cam, color_cam, dp, use_depth,
-                        use_desc, opt_dintr, opt_cintr, slots)
+                        use_desc, opt_dintr, opt_cintr, slots, transfer_free)
   common = (surfels, kf, depth_cam, color_cam, dp, gauge_index, use_depth,
             use_desc)
   r, M = pcg_init(*common, terms=terms)
@@ -452,11 +463,18 @@ def pcg_solve(surfels: SurfelStore, kf: KeyframeStore,
   alpha_n = r.dot(g)
   threshold = 1e-10 * alpha_n + 1e-30
   iterations = 0
-  while iterations < max_inner_iterations and bool(alpha_n > threshold):
+  if transfer_free:
+    poll = DonePoll(surfels.device)
+    done = ~(alpha_n > threshold)
+  while iterations < max_inner_iterations and (
+      transfer_free or bool(alpha_n > threshold)):
     h = apply_hessian(pvec, *common, terms=terms)
     alpha_d = pvec.dot(h)
     alpha = alpha_n / torch.clamp(alpha_d, min=1e-30)
-    delta = delta + pvec.scale(alpha)
+    stepped = delta + pvec.scale(alpha)
+    delta = (PCGVector(*(torch.where(done, a, b)
+                         for a, b in zip(delta, stepped)))
+             if transfer_free else stepped)
     r = r - h.scale(alpha)
     g = M_inv.mul(r)
     beta_n = r.dot(g)
@@ -464,6 +482,10 @@ def pcg_solve(surfels: SurfelStore, kf: KeyframeStore,
     pvec = g + pvec.scale(beta)
     alpha_n = beta_n
     iterations += 1
+    if transfer_free:
+      done = done | ~(alpha_n > threshold)
+      if poll.done(done):
+        break
   if stats is not None:
     stats.update(iterations=iterations, passes=terms.passes,
                  terms_computed=terms.computed,

@@ -22,6 +22,7 @@ from badslam_tpu_torch.geometry.camera import (DepthToColorTransform,
 from badslam_tpu_torch.models import association, cost
 from badslam_tpu_torch.models.calibration import DepthCalibration
 from badslam_tpu_torch.models.surfels import SurfelStore
+from badslam_tpu_torch.utils.transfer import DonePoll
 
 _TRANSLATION_CONVERGENCE_THRESHOLD = 1e-6
 _ROTATION_SCALE = 10.0  # translation_threshold / rotation_threshold
@@ -29,8 +30,8 @@ _ROTATION_SCALE = 10.0  # translation_threshold / rotation_threshold
 
 def is_scale1_converged(x: torch.Tensor) -> torch.Tensor:
   """IsScale1PoseEstimationConverged (convergence_analysis.h:45-52)."""
-  scale = torch.tensor([1.0, 1.0, 1.0, _ROTATION_SCALE, _ROTATION_SCALE,
-                        _ROTATION_SCALE], dtype=x.dtype, device=x.device)
+  scale = torch.where(torch.arange(6, device=x.device) < 3, 1.0,
+                      _ROTATION_SCALE).to(x.dtype)
   scaled = x * scale
   return (torch.sum(scaled * scaled, dim=-1)
           < _TRANSLATION_CONVERGENCE_THRESHOLD)
@@ -138,11 +139,18 @@ def estimate_frame_pose(
     use_depth_residuals: bool = True,
     use_descriptor_residuals: bool = True,
     max_iterations: int = 30,
+    transfer_free: bool = False,
 ) -> Tuple[torch.Tensor, bool]:
   """Returns (global_T_frame_estimate, converged). The loop ends on the
-  host, so each iteration reads the convergence flag from the device."""
+  host, so each iteration reads the convergence flag from the device. With
+  ``transfer_free`` the flag stays on the device and the pose holds once it
+  is set (utils/transfer.py); ``converged`` is then not known and returned
+  as False."""
   T = global_T_frame_init
   converged = False
+  if transfer_free:
+    poll = DonePoll(T.device)
+    done = torch.zeros((), dtype=torch.bool, device=T.device)
   for _ in range(max_iterations):
     H, b, _, _ = accumulate_pose_h_b(
         T, surfels, kf_depth, kf_normals, kf_intensity, depth_cam,
@@ -150,6 +158,12 @@ def estimate_frame_pose(
     x = solve_6x6(H, b)
     # A singular H (no associations) must not poison the pose.
     x = torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
+    if transfer_free:
+      T = torch.where(done, T, T @ se3.exp(-x))
+      done = done | is_scale1_converged(x)
+      if poll.done(done):
+        break
+      continue
     T = T @ se3.exp(-x)
     converged = bool(is_scale1_converged(x))
     if converged:
@@ -171,6 +185,7 @@ def estimate_frame_poses_batched(
     use_descriptor_residuals: bool = True,
     max_iterations: int = 30,
     slots: Optional[Sequence[int]] = None,
+    transfer_free: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Frame-to-model pose GN of every keyframe in ``optimize_mask``.
 
@@ -181,7 +196,8 @@ def estimate_frame_poses_batched(
   and bounds the temporaries to one keyframe times the surfel capacity.
 
   ``slots`` are the indices of ``optimize_mask`` as host ints, for a caller
-  that has them; otherwise the mask is read back once.
+  that has them; otherwise the mask is read back once. ``transfer_free``
+  as in ``estimate_frame_pose``.
 
   Returns (global_T_frame (K, 4, 4), moved (K,) bool). ``moved`` is the
   reference's frame_moved = !IsScale1PoseEstimationConverged(diff.log()) on
@@ -193,7 +209,7 @@ def estimate_frame_poses_batched(
     T[k], _ = estimate_frame_pose(
         global_T_frame_init[k], surfels, kf_depth[k], kf_normals[k],
         kf_intensity[k], depth_cam, color_cam, dp, use_depth_residuals,
-        use_descriptor_residuals, max_iterations)
+        use_descriptor_residuals, max_iterations, transfer_free)
   diff = se3.inverse(global_T_frame_init) @ T
   moved = optimize_mask & ~is_scale1_converged(se3.log(diff))
   return T, moved

@@ -77,7 +77,10 @@ def supported_cell_mask(
   # Lanes that are not associated go to an extra cell that is cut off.
   support = torch.zeros((num_cells + 1,), dtype=torch.bool,
                         device=cell_id.device)
-  support[torch.where(assoc.mask, cell_id, num_cells)] = True
+  # (A Python value assigned through an index is first copied to the
+  # device, which waits for the stream; index_fill_ takes it as an
+  # argument.)
+  support.index_fill_(0, torch.where(assoc.mask, cell_id, num_cells), True)
   return support[:num_cells]
 
 
@@ -193,15 +196,22 @@ def filter_candidates_by_observations(
   (its own keyframe), gathers observations and free-space violations over
   the covisible keyframes, and survives iff ``obs >= min_observation_count
   and violations <= obs`` (CountObservationsForNewSurfelsCUDAKernel +
-  FilterNewSurfelsCUDAKernel, kernel_create_surfels.cu:214-337)."""
+  FilterNewSurfelsCUDAKernel, kernel_create_surfels.cu:214-337).
+
+  ``slots``, where given, are host ints that hold the covisible slots (the
+  valid ones, say): each is masked with ``covis_mask`` on the device, so
+  the mask is never read back."""
   obs = torch.ones_like(cand.mask, dtype=torch.int32)
   fsv = torch.zeros_like(obs)
   for k in _slots_of(covis_mask, slots):
     assoc = association.associate_surfels(
         cand.pos, cand.normal, cand.mask, se3.inverse(covis_T_global[k]),
         covis_depth[k], covis_normals[k], depth_cam, dp)
-    obs = obs + assoc.mask.to(torch.int32)
-    fsv = fsv + assoc.free_space_violation.to(torch.int32)
+    seen, violated = assoc.mask, assoc.free_space_violation
+    if slots is not None:
+      seen, violated = seen & covis_mask[k], violated & covis_mask[k]
+    obs = obs + seen.to(torch.int32)
+    fsv = fsv + violated.to(torch.int32)
   return cand.mask & (obs >= min_observation_count) & (fsv <= obs)
 
 

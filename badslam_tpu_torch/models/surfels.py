@@ -111,21 +111,24 @@ def append(s: SurfelStore, new_pos, new_normal, new_radius_sq, new_color,
   that would overflow the capacity are dropped (the original logs "surfel
   count reached maximum", kernel_create_surfels.cc:162-165).
 
-  The selected candidates are gathered with the mask before they are
-  written (an out-of-range index is an error in PyTorch, not a dropped
-  write), which reads their number back to the host."""
+  An out-of-range index is an error in PyTorch, not a dropped write, and
+  selecting the written candidates with the mask would read their number
+  back to the host; so every field gets one extra row, the candidates that
+  are not written all go there, and the row is cut off."""
   capacity = s.capacity
   as_int = new_mask.to(torch.int32)
   dest = s.count + (torch.cumsum(as_int, dim=0) - as_int)
   write = new_mask & (dest < capacity)
-  dest = dest[write].to(torch.int64)
+  dest = torch.where(write, dest, capacity).to(torch.int64)
   new_count = torch.clamp(s.count + torch.sum(as_int), max=capacity
                           ).to(torch.int32)
 
   def put(old, new):
-    out = old.clone()
-    out[dest] = new[write] if isinstance(new, torch.Tensor) else new
-    return out
+    out = torch.cat([old, old.new_zeros((1,) + old.shape[1:])])
+    if not isinstance(new, torch.Tensor):
+      new = torch.full(new_mask.shape, new, dtype=old.dtype,
+                       device=old.device)
+    return out.index_copy_(0, dest, new)[:capacity]
 
   return SurfelStore(
       pos=put(s.pos, new_pos),

@@ -13,6 +13,12 @@ direct_ba.cc:566-653.
     schedule and reads back small scalars: the activation states once per
     iteration, the surfel count and watermark after lifecycle ops, one
     convergence flag per pose GN iteration or per inner PCG iteration.
+  * ``transfer_free`` (the pipelined front-end's mode, the reference's
+    ``transfer_free``) reads nothing: the slots come from the host mirror of
+    the valid mask and the fixed window, the GN and PCG loops end on lagged
+    polls of their flags (``utils/transfer.py``), the convergence scalar is
+    never read (exactly ``max_iterations`` run), and the end tasks skip the
+    deleted-surfel count and compaction.
   * Each phase loops in Python over the keyframe slots that take part, so
     device work scales with the active set and there is no active-keyframe
     window to gather (``config.use_active_kf_window`` changes nothing).
@@ -25,9 +31,8 @@ direct_ba.cc:566-653.
     copies its result into the same tensors, so every camera made of views
     of them, the front-end and the preprocess kernel's pointers follow.
 
-Not ported, each refused where a caller could reach it: the surfel store
-sharded over a device mesh (ROADMAP queue 1 item 11) and the transfer-free
-mode of the pipelined front-end (item 10).
+Not ported, and refused where a caller could reach it: the surfel store
+sharded over a device mesh (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from badslam_tpu_torch.models.surfels import SurfelStore
 from badslam_tpu_torch.ops.depth_proc import compute_min_max_depth
 from badslam_tpu_torch.utils import logging as log
 from badslam_tpu_torch.utils.timing import Timing
+from badslam_tpu_torch.utils.transfer import to_device
 
 # kDebugVerifySurfelCount (direct_ba.cc:55): recount on the device and CHECK
 # the host mirrors after every BA scheme.
@@ -67,6 +73,15 @@ def unported(what: str, item: str) -> str:
 def make_camera(intr: torch.Tensor, width: int, height: int) -> PinholeCamera:
   """A camera with intrinsics as 0-d views of a (4,) device tensor."""
   return PinholeCamera(width, height, intr[0], intr[1], intr[2], intr[3])
+
+
+def as_device_tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
+  """``value`` (a tensor or a host array) on ``device``, copied from the
+  host without the host waiting for the device."""
+  if isinstance(value, torch.Tensor):
+    return value.to(device=device, dtype=dtype)
+  np_dtype = {torch.float32: np.float32, torch.uint8: np.uint8}[dtype]
+  return to_device(np.asarray(value, np_dtype), device)
 
 
 def camera_intrinsics(cam: PinholeCamera, device) -> torch.Tensor:
@@ -261,7 +276,11 @@ class DirectBA:
     w, h = self.depth_size
     cell = self.cell_size
     headroom = (h // cell + 1) * (w // cell + 1)
-    if self._watermark_bound + headroom > self.surfels.capacity:
+    if (self._watermark_bound + headroom > self.surfels.capacity
+        and not self.config.pipelined_frontend):
+      # The pipelined front-end grows on the bound alone: it ratchets by one
+      # pass's headroom whatever was appended, so the store over-grows, up
+      # to max_surfel_count, rather than reading the watermark.
       _ = self.surfel_watermark  # re-syncs _watermark_bound
     while (self._watermark_bound + headroom > self.surfels.capacity and
            self.surfels.capacity < self.config.max_surfel_count):
@@ -292,14 +311,15 @@ class DirectBA:
     dev = self.device
     w, h = self.depth_size
     cam = self.depth_camera()
-    depth = torch.as_tensor(depth, device=dev)
+    f32 = torch.float32
+    depth = as_device_tensor(depth, f32, dev)
     min_d, max_d = compute_min_max_depth(depth)
     kf = kf_mod.add_keyframe(
-        self.kf, depth, torch.as_tensor(normals, device=dev),
-        torch.as_tensor(radius_sq, device=dev),
-        torch.as_tensor(intensity, device=dev),
-        torch.as_tensor(rgb, device=dev).to(torch.uint8),
-        torch.as_tensor(global_T_frame, dtype=torch.float32, device=dev),
+        self.kf, depth, as_device_tensor(normals, f32, dev),
+        as_device_tensor(radius_sq, f32, dev),
+        as_device_tensor(intensity, f32, dev),
+        as_device_tensor(rgb, torch.uint8, dev),
+        as_device_tensor(global_T_frame, f32, dev),
         frame_index, min_d, max_d, index=idx)
 
     # Frustum intersection of the new keyframe with every existing one.
@@ -320,7 +340,10 @@ class DirectBA:
     return idx
 
   def create_surfels_for_keyframe(self, kf_index: int,
-                                  filter_new_surfels: bool = True):
+                                  filter_new_surfels: bool = True,
+                                  transfer_free: bool = False):
+    """With ``transfer_free`` the covisible keyframes are not read back:
+    the filter visits every valid slot and masks on the device."""
     self._ensure_surfel_capacity()
     kf = self.kf
     covis_mask = kf.covis[kf_index] & kf.valid
@@ -331,11 +354,12 @@ class DirectBA:
         self.color_camera(), self.calibration,
         kf.depth, kf.normals, kf.global_T_frame, covis_mask,
         self.get_min_observation_count(),
-        filter_new_surfels=filter_new_surfels)
+        filter_new_surfels=filter_new_surfels,
+        covis_slots=self._valid_slots() if transfer_free else None)
 
   def set_activation(self, activation: np.ndarray):
-    self.kf = self.kf._replace(activation=torch.as_tensor(
-        np.asarray(activation, np.int32), device=self.device))
+    self.kf = self.kf._replace(activation=to_device(
+        np.asarray(activation, np.int32), self.device))
 
   def _merge_surfels(self, kf_index: int):
     kf = self.kf
@@ -344,24 +368,28 @@ class DirectBA:
         kf.depth[kf_index], kf.normals[kf_index], self.depth_camera(),
         self.calibration, self.surfel_merge_dist_factor)
 
-  def _pose_optimization(self, slots: List[int],
-                         max_iterations: int) -> int:
+  def _pose_optimization(self, slots: List[int], max_iterations: int,
+                         transfer_free: bool = False) -> int:
     """Pose GN of the valid keyframes that are not inactive (``slots``);
     sets their activation to active or inactive by whether they moved
     (direct_ba_alternating.cc:543-577). Returns the number of converged
     keyframes, deleted slots below the watermark included, as the original
-    counts null keyframes as converged."""
+    counts null keyframes as converged; 0 with ``transfer_free``, which
+    reads nothing."""
     kf = self.kf
     optimize = kf.valid & (kf.activation != INACTIVE)
     T, moved = pose_opt.estimate_frame_poses_batched(
         kf.global_T_frame, optimize, self.surfels, kf.depth, kf.normals,
         kf.intensity, self.depth_camera(), self.color_camera(),
         self.calibration, self.use_depth_residuals,
-        self.use_descriptor_residuals, max_iterations, slots=slots)
+        self.use_descriptor_residuals, max_iterations, slots=slots,
+        transfer_free=transfer_free)
     activation = torch.where(
         optimize, torch.where(moved, ACTIVE, INACTIVE).to(torch.int32),
         kf.activation)
     self.kf = kf._replace(global_T_frame=T, activation=activation)
+    if transfer_free:
+      return 0
     in_watermark = torch.arange(kf.capacity, device=self.device) < kf.count
     num_converged = (torch.sum(kf.valid & (activation == INACTIVE))
                      + torch.sum(~kf.valid & in_watermark))
@@ -379,7 +407,8 @@ class DirectBA:
         dst.copy_(src)
 
   def _pcg_iteration(self, slots: List[int], gauge: int, opt_dintr: bool,
-                     opt_cintr: bool) -> torch.Tensor:
+                     opt_cintr: bool, transfer_free: bool = False
+                     ) -> torch.Tensor:
     """One joint GN step by matrix-free PCG over poses and surfels, and over
     the intrinsics when the flags are set (the inner work of
     BundleAdjustmentPCG, direct_ba_pcg.cc:339-471), followed by the PCG
@@ -392,7 +421,7 @@ class DirectBA:
         self.surfels, self.kf, depth_cam, color_cam, calib, gauge,
         self.config.pcg_max_inner_iterations, self.use_depth_residuals,
         self.use_descriptor_residuals, opt_dintr, opt_cintr, slots=slots,
-        stats=stats)
+        stats=stats, transfer_free=transfer_free)
     self.pcg_inner_iterations.append(stats["iterations"])
     self.surfels, self.kf = pcg_mod.apply_pcg_delta(self.surfels, self.kf,
                                                     delta)
@@ -406,13 +435,14 @@ class DirectBA:
     self._write_calibration(*new_calibration)
     return torch.where(self.kf.valid[:, None], delta.poses.abs(), 0.0).max()
 
-  def _optimize_intrinsics(self, optimize_depth: bool, optimize_color: bool):
+  def _optimize_intrinsics(self, optimize_depth: bool, optimize_color: bool,
+                           transfer_free: bool = False):
     """The alternated self-calibration step (models/intrinsics_opt.py)."""
     self._write_calibration(*intrinsics_opt.optimize_intrinsics(
         self.surfels, self.kf, self.calibration, self.color_intr,
         self.color_size, optimize_depth, optimize_color,
         self.use_depth_residuals, self.use_descriptor_residuals,
-        slots=self._valid_slots()))
+        slots=self._valid_slots(), transfer_free=transfer_free))
 
   # --- the BA scheme: alternating, or joint by PCG ---
 
@@ -436,6 +466,11 @@ class DirectBA:
     ``config.use_pcg`` (and poses and geometry both optimized) the geometry
     and pose phases are one joint PCG step (direct_ba_pcg.cc).
 
+    transfer_free: run without a device-to-host read (see the module's
+    docstring); exactly ``max_iterations`` run and ``converged`` is False.
+    Needs a fixed active window (the parallel-BA thread's, bad_slam.cc:
+    1268-1289): the activation evolves by reads otherwise.
+
     deadline: absolute time.perf_counter() deadline for real-time mode; the
     scheme stops before starting an iteration past it (the original's
     time_limit check, direct_ba_alternating.cc:703-709). It bounds when
@@ -443,18 +478,19 @@ class DirectBA:
 
     Returns (num_iterations_done, converged).
     """
-    if transfer_free:
-      raise NotImplementedError(unported(
-          "transfer-free BA", 'item 10 "Pipelined front-end"'))
     fixed_ba_iteration_count = self.ba_iteration_count
 
     if (not increase_ba_iteration_count and
         fixed_ba_iteration_count != self.last_ba_iteration_count):
       self.last_ba_iteration_count = fixed_ba_iteration_count
-      self.perform_ba_scheme_end_tasks(do_surfel_updates)
+      self.perform_ba_scheme_end_tasks(do_surfel_updates,
+                                       transfer_free=transfer_free)
 
     fixed_active_set = (active_keyframe_window_start >= 0 or
                         active_keyframe_window_end >= 0)
+    if transfer_free and not fixed_active_set:
+      raise ValueError("transfer_free BA needs a fixed active window (the "
+                       "activation evolves by reads otherwise)")
 
     # Surfel active states start inactive.
     self.surfels = self.surfels._replace(
@@ -496,11 +532,18 @@ class DirectBA:
         self.set_activation(act)
         self.kf = determine_covisible_active(self.kf)
 
-      # One device->host read per iteration: activation, -1 for invalid
-      # slots. It drives surfel creation for newly active keyframes and
-      # says which slots each phase below visits.
-      act_valid = torch.where(self.kf.valid, self.kf.activation,
-                              -1).cpu().numpy()
+      if transfer_free:
+        # The fixed window's activation is known on the host: active for the
+        # valid slots in the window, -1 elsewhere (a full window leaves no
+        # slot to become covisible-active).
+        act_valid = np.where(self._kf_valid_host[:self.kf.capacity], act,
+                             -1)
+      else:
+        # One device->host read per iteration: activation, -1 for invalid
+        # slots. It drives surfel creation for newly active keyframes and
+        # says which slots each phase below visits.
+        act_valid = torch.where(self.kf.valid, self.kf.activation,
+                                -1).cpu().numpy()
       active_slots = np.flatnonzero(act_valid == ACTIVE).tolist()
       participating = np.flatnonzero(act_valid >= COVISIBLE_ACTIVE).tolist()
 
@@ -515,7 +558,8 @@ class DirectBA:
               self.last_active_in_ba_iteration[i] = fixed_ba_iteration_count
               keyframes_with_new_surfels.append(i)
           for i in keyframes_with_new_surfels:
-            self.create_surfels_for_keyframe(i, filter_new_surfels=True)
+            self.create_surfels_for_keyframe(i, filter_new_surfels=True,
+                                             transfer_free=transfer_free)
 
       # --- SURFEL ACTIVATION ---
       with Timing.time("BA surfel activation"):
@@ -542,7 +586,7 @@ class DirectBA:
           valid_slots = self._valid_slots() or [0]
           gauge = valid_slots[iteration % len(valid_slots)]
           pose_update = self._pcg_iteration(participating, gauge, pcg_dintr,
-                                            pcg_cintr)
+                                            pcg_cintr, transfer_free)
       elif optimize_geometry:
         with Timing.time("BA geometry optimization"):
           self.surfels = geometry_opt.optimize_geometry_iteration(
@@ -560,19 +604,19 @@ class DirectBA:
       num_converged = kcount
       if use_pcg:
         # The PCG step already moved the poses; convergence is read from
-        # the update's norm (one device->host read).
-        if not float(pose_update) ** 2 * 100.0 < 1e-6:
+        # the update's norm (one device->host read), never without reads.
+        if transfer_free or not float(pose_update) ** 2 * 100.0 < 1e-6:
           num_converged = 0
       elif optimize_poses:
         with Timing.time("BA pose optimization"):
           num_converged = self._pose_optimization(
-              participating, max_inner_pose_iterations)
+              participating, max_inner_pose_iterations, transfer_free)
 
       # --- INTRINSICS OPTIMIZATION (alternated; not for the unknowns that
       # the joint PCG step above already solved) ---
       if alt_dintr or alt_cintr:
         with Timing.time("BA intrinsics optimization"):
-          self._optimize_intrinsics(alt_dintr, alt_cintr)
+          self._optimize_intrinsics(alt_dintr, alt_cintr, transfer_free)
 
       if self.timings_stream is not None:
         self.timings_stream.write(
@@ -591,7 +635,8 @@ class DirectBA:
       self.kf = determine_covisible_active(self.kf)
 
     if increase_ba_iteration_count:
-      self.perform_ba_scheme_end_tasks(do_surfel_updates)
+      self.perform_ba_scheme_end_tasks(do_surfel_updates,
+                                       transfer_free=transfer_free)
       self.ba_iteration_count += 1
 
     if DEBUG_VERIFY_COUNT:
@@ -615,20 +660,27 @@ class DirectBA:
               "keyframe valid mirror matches device mask")
     log.debug("DebugVerifySurfelCount: ok")
 
-  def perform_ba_scheme_end_tasks(self, do_surfel_updates: bool = True):
+  def perform_ba_scheme_end_tasks(self, do_surfel_updates: bool = True,
+                                  transfer_free: bool = False):
     """Merge (keyframes active in this scheme), delete, update radii,
-    compact (direct_ba.cc:566-653)."""
+    compact (direct_ba.cc:566-653). ``transfer_free`` skips the two reads:
+    the deleted-surfel count and the fragmentation test of compaction
+    (purely an optimization of the masked store; the watermark's creep is
+    bounded by the store's growth)."""
     if do_surfel_updates:
       with Timing.time("BA final surfel merge and compact"):
         for i in range(self.keyframe_count):
           if self.last_active_in_ba_iteration[i] == self.ba_iteration_count:
             self._merge_surfels(i)
     with Timing.time("BA final surfel del. and radius upd."):
-      before = self.surfel_count
+      before = None if transfer_free else self.surfel_count
       self.surfels = surfel_ops.delete_surfels_and_update_radii(
           self.surfels, self.kf, self.depth_camera(), self.calibration,
           self.get_min_observation_count(), True, slots=self._valid_slots())
-      self.num_surfels_deleted += max(0, before - self.surfel_count)
+      if before is not None:
+        self.num_surfels_deleted += max(0, before - self.surfel_count)
+    if transfer_free:
+      return
     # Compaction (CompactSurfelsCUDA, direct_ba.cc:645): reclaim dead slots
     # when fragmentation is high, so the watermark does not creep toward
     # the capacity.

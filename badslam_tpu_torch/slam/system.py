@@ -58,8 +58,20 @@ database query on a thread of its own unless ``parallel_loop_detection`` is
 off; the closing runs inside the keyframe's registration: on the main
 thread under sequential BA, on the BA thread under parallel BA.
 
-The pipelined front-end is refused in ``BadSlam.__init__``, naming the
-ROADMAP item that will port it.
+The pipelined front-end (``pipelined_frontend``; ``slam/pipelined.py``)
+keeps the motion model, the failure gate, the trajectory, BA and the loop
+closure on the device, and the host never waits for the card from the first
+``process_frame`` to the last: BA runs transfer-free, one iteration per
+frame while budget remains, inline or (``pipelined_concurrent_ba``) on a
+thread of its own; loop detection runs inline, from the dataset's host
+images, and a closure is one device program whose outcome
+``finalize_pipelined`` reads, with the trajectory, after the run. Under
+``pipelined_concurrent_ba`` on a GPU the frame's work runs on the
+high-priority stream and every map write (keyframe registration, surfel
+creation, the closure, BA) on the low-priority one, in the order of a map
+lock: the BA stream waits on an event of the main stream before it reads a
+keyframe's images, which are marked as used by it (``record_stream``), and
+the main stream never waits on the BA stream.
 """
 
 from __future__ import annotations
@@ -83,17 +95,12 @@ from badslam_tpu_torch.models.calibration import DepthCalibration
 from badslam_tpu_torch.ops import depth_model, depth_proc, image_proc
 from badslam_tpu_torch.ops.fused_preprocess import fused_depth_preprocess
 from badslam_tpu_torch.ops.pyramid import build_pyramid
-from badslam_tpu_torch.slam.direct_ba import DirectBA, unported
+from badslam_tpu_torch.slam import pipelined
+from badslam_tpu_torch.slam.direct_ba import DirectBA
+from badslam_tpu_torch.slam.pipelined import WEAK_EDGE_WEIGHT
 from badslam_tpu_torch.utils import logging as log
 from badslam_tpu_torch.utils.timing import Timing
-
-# The pose-graph weight of an odometry edge into a keyframe made while the
-# tracking-failure gate had fired (a constant-position guess, not a
-# measurement): a later loop closure then puts its correction there. Its
-# home in the reference is ``badslam_tpu/slam/pipelined.py``; it moves to
-# the port's ``slam/pipelined.py`` when that module is ported (ROADMAP queue
-# 1 item 10).
-WEAK_EDGE_WEIGHT = 0.05
+from badslam_tpu_torch.utils.transfer import to_device
 # kApproxKeyframeSize of the memory watchdog (bad_slam.cc:958-968).
 APPROX_KEYFRAME_BYTES = 4 * 1024 * 1024
 # How long stop_ba_thread_and_wait waits for the BA thread to finish the
@@ -122,9 +129,6 @@ class BAThreadError(RuntimeError):
 
 def check_supported(config: BadSlamConfig, device: torch.device) -> None:
   """Raise NotImplementedError for a configuration outside the port."""
-  if config.pipelined_frontend or config.pipelined_concurrent_ba:
-    raise NotImplementedError(unported(
-        "--pipelined_frontend", 'item 10 "Pipelined front-end"'))
   if device.type == "cuda" and not config.use_pallas_preprocess:
     raise NotImplementedError(
         "--no_pallas_preprocess on a CUDA device: there the plain "
@@ -148,14 +152,25 @@ class BadSlam:
     check_supported(config, self.device)
     self.config = config
     self.rgbd_video = rgbd_video
+    # The pipelined front-end (slam/pipelined.py) implies its own BA
+    # schedule: inline, or on its thread with pipelined_concurrent_ba.
+    self._pipelined = bool(config.pipelined_frontend)
+    self._pl_concurrent_ba = bool(self._pipelined
+                                  and config.pipelined_concurrent_ba
+                                  and config.estimate_poses)
+    if self._pipelined and config.parallel_ba and not self._pl_concurrent_ba:
+      log.info("pipelined_frontend: forcing sequential BA "
+               "(--pipelined_concurrent_ba moves BA off the frame path)")
     # The parallel BA thread (bad_slam.cc:1160-1313) needs estimated poses:
     # with --no_pose_estimation there is no BA at all.
-    self._parallel = bool(config.parallel_ba and config.estimate_poses)
-    # The two CUDA streams of the parallel mode (bad_slam.cc:68-74): the
+    self._parallel = bool(config.parallel_ba and config.estimate_poses
+                          and not self._pipelined)
+    # The two CUDA streams of the parallel modes (bad_slam.cc:68-74): the
     # frame's work at high priority, BA at low priority. Elsewhere the
     # caller's stream does everything.
     self._main_stream = self._ba_stream = None
-    if self._parallel and self.device.type == "cuda":
+    if ((self._parallel or self._pl_concurrent_ba)
+        and self.device.type == "cuda"):
       self._main_stream = torch.cuda.Stream(self.device, priority=-1)
       self._ba_stream = torch.cuda.Stream(self.device, priority=0)
     # Pyramid-level input scaling (main.cc:540-552): cameras and images are
@@ -178,8 +193,12 @@ class BadSlam:
       torch.cuda.current_stream(self.device).wait_stream(self._ba_stream)
     if loop_detector is None and config.enable_loop_detection:
       from badslam_tpu_torch.loop.detector import LoopDetector
+      # The pipelined front-end detects inline: the detection thread pairs
+      # 1:1 with queue_for_detection, which its keyframe path does not use
+      # (its closures verify on the device).
       loop_detector = LoopDetector(
-          config, color_cam, parallel=config.parallel_loop_detection)
+          config, color_cam,
+          parallel=config.parallel_loop_detection and not self._pipelined)
     self.loop_detector = loop_detector
     # Guards the map's poses, the trajectory and the hand-off queues below
     # (ba_thread_mutex_): the BA thread, the loop closure and the main
@@ -240,6 +259,29 @@ class BadSlam:
       # Stop the thread before the interpreter tears down under it.
       atexit.register(self.stop_ba_thread_and_wait)
 
+    # The pipelined front-end's device state, and under
+    # pipelined_concurrent_ba its BA thread: the thread runs queued BA
+    # iterations, each under _pl_map_lock, which the main thread also takes
+    # for its map writes. Loop-closure repair iterations still owed to the
+    # thread's queue (_pl_ba_repair_debt) pass its backlog cap.
+    self.pipelined_state: Optional[pipelined.PipelinedState] = None
+    self._pl_map_lock = None
+    self._pl_ba_queue: List[dict] = []
+    self._pl_ba_busy = False
+    self._pl_ba_repair_debt = 0
+    self._pl_ba_sched_count = 0
+    self.pl_ba_dropped = 0   # iterations the backlog cap dropped
+    self._pl_ba_thread: Optional[threading.Thread] = None
+    if self._pipelined:
+      self.pipelined_state = pipelined.PipelinedState(
+          len(rgbd_video.frames), self.device)
+    if self._pl_concurrent_ba:
+      self._pl_map_lock = threading.Lock()
+      self._pl_ba_thread = threading.Thread(
+          target=self._pl_ba_thread_main, name="pl_ba_thread", daemon=True)
+      self._pl_ba_thread.start()
+      atexit.register(self.stop_ba_thread_and_wait)
+
   @staticmethod
   def _on_stream(stream):
     return (torch.cuda.stream(stream) if stream is not None
@@ -260,6 +302,8 @@ class BadSlam:
     caller.wait_stream(self._main_stream)
 
   def _process_frame(self, frame_index: int, force_keyframe: bool):
+    if self._pipelined:
+      return self._process_frame_pipelined(frame_index, force_keyframe)
     cfg = self.config
     self._frame_timer_start = time.perf_counter()
     if cfg.target_frame_rate > 0:
@@ -333,7 +377,7 @@ class BadSlam:
     shared object under sequential BA; under parallel BA the newest
     snapshot the BA thread published, taken here once per frame, with the
     main stream made to wait for the snapshot's event."""
-    if not self._parallel:
+    if not (self._parallel or self._pl_concurrent_ba):
       return self.calibration
     with self._ba_lock:
       published, self._published_calibration = (
@@ -518,11 +562,13 @@ class BadSlam:
   def _track_pairwise(self, calib: DepthCalibration, base_depth,
                       base_normals, base_intensity, tracked_depth,
                       tracked_normals, tracked_intensity,
-                      est1, est2) -> Tuple[torch.Tensor, torch.Tensor]:
+                      est1, est2, transfer_free: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Calibrate both depth images with ``calib``, build both pyramids and
     track coarse-to-fine from two initial base_T_tracked estimates (the
     compute core of RunOdometry, bad_slam.cc:827-951). Returns
-    (base_T_tracked, residual count), both on the device."""
+    (base_T_tracked, residual count), both on the device; with
+    ``transfer_free`` the GN loops end without the host waiting."""
     cfg = self.config
     residual_type = "gradient_xy"
     if cfg.use_gradmag_for_tracking:
@@ -547,7 +593,7 @@ class BadSlam:
         use_descriptor_residuals=cfg.use_photometric_residuals,
         use_pyramid_level_0=True,
         convergence_threshold=cfg.odometry_convergence_threshold,
-        residual_type=residual_type)
+        residual_type=residual_type, transfer_free=transfer_free)
 
   def track_keyframe_pair(self, base_slot: int, tracked_slot: int,
                           base_T_tracked_init: np.ndarray) -> np.ndarray:
@@ -556,13 +602,23 @@ class BadSlam:
     keyframe, tracked = the matched keyframe or a neighbour; both sides use
     the keyframes' filtered depth, calibrated on the fly with the map's
     calibration; under parallel BA this runs on the BA thread)."""
+    return self.track_keyframe_pair_device(
+        base_slot, tracked_slot, base_T_tracked_init).cpu().numpy()
+
+  def track_keyframe_pair_device(self, base_slot: int, tracked_slot: int,
+                                 base_T_tracked_init, transfer_free=False
+                                 ) -> torch.Tensor:
+    """``track_keyframe_pair`` with the result left on the device; with
+    ``transfer_free`` its GN loops end without the host waiting (the
+    pipelined front-end's device closure)."""
     kf = self.direct_ba.kf
     base_T_tracked, _ = self._track_pairwise(
         self.calibration, kf.depth[base_slot], kf.normals[base_slot],
         kf.intensity[base_slot], kf.depth[tracked_slot],
         kf.normals[tracked_slot], kf.intensity[tracked_slot],
-        base_T_tracked_init, base_T_tracked_init)
-    return base_T_tracked.cpu().numpy()
+        base_T_tracked_init, base_T_tracked_init,
+        transfer_free=transfer_free)
+    return base_T_tracked
 
   def _tracking_failure_injected(self, frame_index: int) -> bool:
     """Fault-injection seam: report a tracking failure for this frame (a
@@ -901,6 +957,22 @@ class BadSlam:
     queued iterations, stop it, register the keyframes still queued, and
     stop the loop detector's thread; then raise the BA thread's error if it
     had one. Safe to call more than once."""
+    pl_thread = self._pl_ba_thread
+    if pl_thread is not None:
+      atexit.unregister(self.stop_ba_thread_and_wait)
+      try:
+        self._drain_pl_ba()
+      finally:
+        with self._ba_condition:
+          self._quit_requested = True
+          self._ba_condition.notify_all()
+        pl_thread.join(timeout=BA_THREAD_JOIN_SECONDS)
+        if pl_thread.is_alive():
+          raise BAThreadError(
+              f"the pipelined BA thread did not stop within "
+              f"{BA_THREAD_JOIN_SECONDS} s of the request")
+        self._pl_ba_thread = None
+        self._join_streams()
     thread = self._ba_thread
     if thread is not None:
       atexit.unregister(self.stop_ba_thread_and_wait)
@@ -925,6 +997,333 @@ class BadSlam:
     if self.loop_detector is not None:
       self.loop_detector.request_exit_and_wait()
     self._raise_if_ba_thread_failed()
+
+  # --- the pipelined front-end (slam/pipelined.py) ---
+
+  def _process_frame_pipelined(self, frame_index: int, force_keyframe: bool):
+    """ProcessFrame without the host waiting for the device: tracking, the
+    motion model, the failure gate and the trajectory run on the device, BA
+    in DirectBA's transfer-free mode. ``finalize_pipelined`` makes the
+    global poses after the run."""
+    cfg = self.config
+    ba = self.direct_ba
+    self._frame_timer_start = time.perf_counter()
+    if cfg.target_frame_rate > 0:
+      self._target_frame_end_time += 1.0 / cfg.target_frame_rate
+
+    calibration = self._frame_calibration()
+    with Timing.time("Preprocessing"):
+      processed = self.preprocess_frame(frame_index, calibration)
+
+    if cfg.estimate_poses and self.base_kf_images is not None:
+      with Timing.time("Odometry"):
+        injected = self._tracking_failure_injected(frame_index)
+        if injected:
+          self._tracking_failed_since_kf = True
+        base = self.base_kf_images
+        w, h = calibration.depth_size
+
+        def track(est1, est2):
+          return self._track_pairwise(
+              calibration, base.depth, base.normals, base.intensity,
+              processed.raw_depth, processed.normals, processed.intensity,
+              est1, est2, transfer_free=True)
+
+        pl = self.pipelined_state
+        pl.hist, pl.fail_acc = pipelined.track_frame(
+            track, pl.hist, min(3, pl.hist_n), pl.traj_rel, frame_index,
+            pl.fail_acc, injected, use_motion_model=cfg.use_motion_model,
+            min_resid=max(50, (w * h) // 100),
+            max_speed=float(cfg.max_translation_per_frame))
+        pl.hist_n = min(3, pl.hist_n + 1)
+        pl.traj_slot[frame_index] = pl.base_slot
+      # Fault-injection seam: the device state between tracking and the
+      # keyframe.
+      self._after_pipelined_tracking(frame_index)
+    self.last_frame_index = max(self.last_frame_index, frame_index)
+
+    if (force_keyframe
+        or (frame_index - cfg.start_frame) % cfg.keyframe_interval == 0):
+      with Timing.time("Keyframe creation"):
+        self._create_keyframe_pipelined(frame_index, processed)
+
+    # One transfer-free BA iteration per frame while budget remains (the
+    # parallel-BA thread's schedule, bad_slam.cc:1268-1289): inline, or
+    # queued for the BA thread so that the frame never waits on BA.
+    if self.num_planned_ba_iterations > 0 and ba.keyframe_count >= 2:
+      self.ba_counter += 1
+      k = ba.keyframe_count
+      optimize_intrinsics = (
+          cfg.optimize_intrinsics and k >= 10 and
+          (k <= 20
+           or self.ba_counter % cfg.intrinsics_optimization_interval == 0))
+      opts = dict(
+          optimize_depth_intrinsics=(optimize_intrinsics
+                                     and cfg.use_geometric_residuals),
+          optimize_color_intrinsics=(optimize_intrinsics
+                                     and cfg.use_photometric_residuals),
+          k=k)
+      if not self._pl_concurrent_ba:
+        with Timing.time("Bundle adjustment"):
+          self._run_pl_ba_iteration(opts)
+      elif self._pl_ba_thread.is_alive():
+        self._enqueue_pl_ba(opts)
+      else:
+        # The thread died: raise its error once; after that the iterations
+        # run here (queueing to a dead thread would drop them all).
+        self._raise_if_ba_thread_failed()
+        with Timing.time("Bundle adjustment"), self._pl_map_lock, \
+            self._on_map_stream():
+          self._run_pl_ba_iteration(opts)
+      self.num_planned_ba_iterations -= 1
+
+  @contextlib.contextmanager
+  def _on_map_stream(self):
+    """Map writes from the main thread: on the BA stream, after the main
+    stream's work so far (a no-op without the two streams)."""
+    if self._ba_stream is None:
+      yield
+      return
+    self._ba_stream.wait_event(self._record_main_event())
+    with torch.cuda.stream(self._ba_stream):
+      yield
+
+  def _enqueue_pl_ba(self, opts: dict) -> bool:
+    """Hand one BA iteration to the pipelined BA thread. The backlog is
+    capped, as start_parallel_iterations caps it: when BA is slower than the
+    frames, the excess drops instead of queueing behind the camera, except
+    loop-closure repair iterations (_pl_ba_repair_debt), which finalize
+    flushes if the run ends first."""
+    cfg = self.config
+    with self._ba_condition:
+      repair = self._pl_ba_repair_debt > 0
+      if repair:
+        self._pl_ba_repair_debt -= 1
+      if repair or (len(self._pl_ba_queue)
+                    < 3 * cfg.max_num_ba_iterations_per_keyframe):
+        self._pl_ba_queue.append(dict(opts, event=self._record_main_event()))
+        self._ba_condition.notify_all()
+        return True
+      self.pl_ba_dropped += 1
+      return False
+
+  def _run_pl_ba_iteration(self, opts: dict):
+    """One transfer-free BA iteration over the whole store, and every
+    max_num_ba_iterations_per_keyframe iterations the end tasks' delete and
+    radius pass (without the merge): with increase_ba_iteration_count off,
+    the counter-gated end tasks would run only once, and surfels orphaned by
+    a closure's repair would stay."""
+    cfg = self.config
+    self.direct_ba.bundle_adjustment(
+        optimize_depth_intrinsics=opts["optimize_depth_intrinsics"],
+        optimize_color_intrinsics=opts["optimize_color_intrinsics"],
+        do_surfel_updates=cfg.do_surfel_updates,
+        optimize_poses=True, optimize_geometry=True,
+        min_iterations=0, max_iterations=1,
+        active_keyframe_window_start=0,
+        active_keyframe_window_end=opts["k"] - 1,
+        increase_ba_iteration_count=False, transfer_free=True)
+    if cfg.do_surfel_updates:
+      self._pl_ba_sched_count += 1
+      if (self._pl_ba_sched_count
+          % max(1, cfg.max_num_ba_iterations_per_keyframe) == 0):
+        self.direct_ba.perform_ba_scheme_end_tasks(
+            do_surfel_updates=False, transfer_free=True)
+    if (self._pl_concurrent_ba and (opts["optimize_depth_intrinsics"]
+                                    or opts["optimize_color_intrinsics"])):
+      self._publish_calibration()
+
+  def _pl_ba_thread_main(self):
+    """The pipelined BA thread (BAThreadMain without the keyframe queue:
+    the main thread registers keyframes): each queued iteration runs on the
+    BA stream, after its hand-off event, holding the map lock. An error
+    stops the thread and is kept for the main thread to raise."""
+    try:
+      with self._on_stream(self._ba_stream):
+        while True:
+          with self._ba_condition:
+            self._pl_ba_busy = False
+            while not self._pl_ba_queue and not self._quit_requested:
+              self._ba_condition.wait(timeout=0.1)
+            if not self._pl_ba_queue:
+              return
+            self._pl_ba_busy = True
+            opts = self._pl_ba_queue.pop(0)
+          if opts["event"] is not None:
+            self._ba_stream.wait_event(opts["event"])
+          with self._pl_map_lock, Timing.time("BA thread iteration"):
+            self._run_pl_ba_iteration(opts)
+    except BaseException as e:   # re-raised on the main thread
+      with self._ba_condition:
+        self._ba_thread_error = e
+        self._ba_thread_failed = True
+        self._pl_ba_busy = False
+        self._pl_ba_queue.clear()
+        self._ba_condition.notify_all()
+
+  def _drain_pl_ba(self):
+    """Wait, without waiting for the device, until the pipelined BA thread
+    has no iteration queued or running; raise its error if it died."""
+    if self._pl_ba_thread is None:
+      return
+    while True:
+      self._raise_if_ba_thread_failed()
+      with self._ba_lock:
+        if not self._pl_ba_queue and not self._pl_ba_busy:
+          return
+        if not self._pl_ba_thread.is_alive():
+          self._pl_ba_queue.clear()
+          raise BAThreadError(
+              "the pipelined BA thread died with queued iterations")
+      time.sleep(0.002)
+
+  def _after_pipelined_tracking(self, frame_index: int):
+    """Hook between tracking and keyframe creation in the pipelined loop;
+    a no-op (fault-injection harnesses override it)."""
+
+  def _create_keyframe_pipelined(self, frame_index: int,
+                                 processed: ProcessedFrame):
+    """CreateKeyframe without reads: the pose is composed on the device from
+    the base keyframe's current store pose; loop-detection features come
+    from the dataset's host images (the reference extracts them on the CPU
+    too, bad_slam.cc:1014-1024). The memory watchdog is skipped (its merge
+    ranks poses read back): size the stores by the configuration. The map
+    writes run under the map lock, on the BA stream when there is one."""
+    ba = self.direct_ba
+    cfg = self.config
+    pl = self.pipelined_state
+    lock = self._pl_map_lock or contextlib.nullcontext()
+    if self._ba_stream is not None:
+      # The BA stream reads these after the hand-off event; their memory
+      # must not be handed out again before it has.
+      for t in (*processed, pl.hist, pl.fail_acc):
+        t.record_stream(self._ba_stream)
+    with lock, self._on_map_stream():
+      if ba.keyframe_count == 0 or not cfg.estimate_poses:
+        # The first keyframe, or mapping only (--no_pose_estimation): the
+        # dataset's pose, as the host front-end takes it; without tracking
+        # the history stays the identity and composing would put every
+        # keyframe onto the first.
+        pose = to_device(np.asarray(
+            self.rgbd_video.frames[frame_index].global_T_frame, np.float32),
+            self.device)
+      else:
+        pose = pipelined.keyframe_pose(ba.kf.global_T_frame, pl.base_slot,
+                                       pl.hist)
+      idx = ba.add_keyframe(
+          processed.depth, processed.normals, processed.radius_sq,
+          processed.intensity, processed.rgb, pose, frame_index)
+      self.keyframe_frame_indices.append(frame_index)
+      # The odometry edge into this keyframe is weak where the failure gate
+      # fired since the last one (the device closure's pose graph reads
+      # it). The host mirror knows injected failures only.
+      pl.ensure_edge_capacity(ba.kf.capacity, self.device)
+      pipelined.record_edge_weight(pl.edge_weight, idx, pl.fail_acc)
+      self.keyframe_edge_weight[idx] = (
+          WEAK_EDGE_WEIGHT if self._tracking_failed_since_kf
+          or self._tracking_failure_injected(frame_index) else 1.0)
+      self._tracking_failed_since_kf = False
+      if ba.keyframe_count == 1:
+        ba.create_surfels_for_keyframe(idx, filter_new_surfels=False,
+                                       transfer_free=True)
+      elif not cfg.do_surfel_updates:
+        ba.create_surfels_for_keyframe(idx, filter_new_surfels=True,
+                                       transfer_free=True)
+      if (self.loop_detector is not None
+          and self._loop_detection_due(frame_index)):
+        event = self.loop_detector.add_keyframe(
+            idx, *self._host_detection_images(frame_index, processed), self)
+        if event is not None and event.reason == "device-pending":
+          self._plan_closure_repair()
+
+    # The front-end's state, on the main stream: a new accumulator (the old
+    # one was read above), the history rebased onto the new keyframe.
+    pl.fail_acc = torch.zeros((), dtype=torch.float32, device=self.device)
+    pl.base_slot = idx
+    pl.traj_slot[frame_index] = idx
+    if pl.hist_n == 0:
+      pl.hist_n = 1   # the identity entry of the first keyframe
+    else:
+      pl.hist = pipelined.rebase_history(pl.hist)
+    self.base_kf_index = idx
+    self.base_kf_images = processed
+    if cfg.estimate_poses and ba.keyframe_count >= 2:
+      self.num_planned_ba_iterations += cfg.max_num_ba_iterations_per_keyframe
+
+  def _plan_closure_repair(self):
+    """The BA iterations that re-converge keyframes and surfels onto the
+    poses a device closure corrected. Its applied flag is on the device, so
+    they are planned either way (after a rejected closure they change
+    little). Where the BA thread runs them they are owed to its queue, past
+    its backlog cap; an inline run owes nothing."""
+    budget = self.config.max_num_ba_iterations_per_keyframe
+    self.num_planned_ba_iterations += budget
+    if self._pl_concurrent_ba:
+      self._pl_ba_repair_debt += budget
+
+  def _host_detection_images(self, frame_index: int,
+                             processed: ProcessedFrame):
+    """Loop-detection inputs without reading the device: intensity and
+    metric depth from the dataset's host images, with the u8-luma rounding
+    of ops/image_proc.rgb_to_intensity and the max-depth cutoff of the
+    processed depth (its bilateral smoothing and isolated-pixel removal are
+    left out: far below RANSAC's 0.06 m gate). With a pyramid level the
+    host images no longer match the detector's camera, and the processed
+    images are read back instead."""
+    cfg = self.config
+    if cfg.pyramid_level_for_depth or cfg.pyramid_level_for_color:
+      return processed.intensity.cpu().numpy(), processed.depth.cpu().numpy()
+    video = self.rgbd_video
+    frame = video.frames[frame_index]
+    rgb = np.asarray(frame.rgb(), np.float32)
+    luma = np.floor(0.299 * rgb[..., 0] + 0.587 * rgb[..., 1]
+                    + 0.114 * rgb[..., 2] + 0.5)
+    intensity = np.clip(luma, 0.0, 255.0) * (1.0 / 255.0)
+    depth = (frame.depth_raw().astype(np.float32)
+             * np.float32(video.raw_to_float_depth))
+    depth = np.where((depth > 0.0) & (depth <= cfg.max_depth), depth, 0.0)
+    return intensity.astype(np.float32), depth.astype(np.float32)
+
+  def finalize_pipelined(self):
+    """Write the global per-frame poses of a pipelined run into the video
+    (the run's blocking reads): flush the closure repair iterations still
+    owed into the BA thread's queue and wait for it, then read the relative
+    trajectory and the keyframe poses, and the pending device closures'
+    outcomes. A no-op for the host front-end."""
+    if not self._pipelined:
+      return
+    t0 = time.perf_counter()
+    # A closure near the end of the run plans more repair iterations than
+    # frames are left to queue them on: they run now, as the reference's
+    # BA thread finishes its planned iterations after the camera stops.
+    debt = self._pl_ba_repair_debt
+    if (debt > 0 and self._pl_ba_thread is not None
+        and self._pl_ba_thread.is_alive()
+        and self.direct_ba.keyframe_count >= 2):
+      log.info(f"finalize_pipelined: flushing {debt} closure repair BA "
+               f"iterations")
+      opts = dict(optimize_depth_intrinsics=False,
+                  optimize_color_intrinsics=False,
+                  k=self.direct_ba.keyframe_count,
+                  event=self._record_main_event())
+      with self._ba_condition:
+        self._pl_ba_queue.extend(dict(opts) for _ in range(debt))
+        self._pl_ba_repair_debt = 0
+        self._ba_condition.notify_all()
+    self._drain_pl_ba()
+    self._join_streams()
+    t1 = time.perf_counter()
+    poses = pipelined.finalize(
+        self.pipelined_state, self.direct_ba.kf.global_T_frame,
+        self.keyframe_frame_indices, self.last_frame_index)
+    for i, p in poses.items():
+      self.rgbd_video.frames[i].global_T_frame = p
+    t2 = time.perf_counter()
+    if self.loop_detector is not None:
+      self.loop_detector.resolve_pending_device_events()
+    log.info(f"finalize_pipelined: BA drain {t1 - t0:.3f} s, trajectory "
+             f"{t2 - t1:.3f} s, device closures "
+             f"{time.perf_counter() - t2:.3f} s")
 
   # --- bundle adjustment ---
 

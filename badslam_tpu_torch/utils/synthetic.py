@@ -15,6 +15,7 @@ pipeline, which runs the port's normal and radius stencils.
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 from typing import Iterator, List, NamedTuple, Optional, Tuple
 
@@ -297,6 +298,10 @@ def multi_view_plane_keyframes(
     yield preprocess_like_test_keyframe(depth, camera, intensity, cell), T
 
 
+# Threads that render a dataset's frames.
+RENDER_WORKERS = 8
+
+
 def straight_trajectory(num_frames: int, step=None) -> List[np.ndarray]:
   """The constant-twist trajectory of the odometry-only benchmark
   configuration: frame i is exp(i * step)."""
@@ -314,17 +319,22 @@ def write_tum_dataset(out_dir: str, trajectory: List[np.ndarray],
                       camera: Optional[PinholeCamera] = None) -> str:
   """Render the heightmap world along ``trajectory`` and write a TUM
   dataset: calibration.txt, associated.txt, groundtruth.txt, rgb/*.png
-  (grey as RGB) and depth/*.png (16-bit, depth_scaling * metres)."""
+  (grey as RGB) and depth/*.png (16-bit, depth_scaling * metres). The
+  frames render on a thread pool (numpy's array loops release the
+  interpreter lock), in order."""
   cam = camera or default_test_camera(width, height)
 
-  def images():
-    for T in trajectory:
-      depth, inten = render_heightmap(cam, T, seed=seed,
-                                      raw_to_float_depth=1.0 / depth_scaling)
-      u8 = np.clip(np.floor(inten * 255.0 + 0.5), 0, 255).astype(np.uint8)
-      yield (np.stack([u8, u8, u8], axis=-1),
-             np.floor(depth * depth_scaling + 0.5).astype(np.uint16))
-  return _write_tum(out_dir, cam, trajectory, images(), fps)
+  def images(T):
+    depth, inten = render_heightmap(cam, T, seed=seed,
+                                    raw_to_float_depth=1.0 / depth_scaling)
+    u8 = np.clip(np.floor(inten * 255.0 + 0.5), 0, 255).astype(np.uint8)
+    return (np.stack([u8, u8, u8], axis=-1),
+            np.floor(depth * depth_scaling + 0.5).astype(np.uint16))
+
+  with concurrent.futures.ThreadPoolExecutor(
+      min(RENDER_WORKERS, os.cpu_count() or 1)) as pool:
+    return _write_tum(out_dir, cam, trajectory, pool.map(images, trajectory),
+                      fps)
 
 
 def write_tum_video(out_dir: str, video: RGBDVideo,

@@ -114,11 +114,50 @@ Phases (any failure exits non-zero and prints no result line):
  21. the same with --sequential_ba --export_reconstruction (cell 1): the
      dense cloud holds more than twice the surfels, finite, median |error|
      < 1e-3 m, and the back-end has its own calibration object back;
- 22. the odometry-only run of 5 without and with the frame prefetcher, in
-     turns (without, with, with, without): print "Preprocessing" warm mean
-     ms and warm frames/s of each;
- 23. check that no module of JAX or of the JAX package was imported.
-Phases 17-22 run after 14, on its dataset, and before 15.
+ 22. the odometry-only run of 5 over its first 21 frames without and with
+     the frame prefetcher, in turns (without, with, with, without): print
+     "Preprocessing" warm mean ms and warm frames/s of each;
+ 23. check that no module of JAX or of the JAX package was imported;
+ 24. the pipelined front-end on the CLI: phase 7's command line with
+     --pipelined_frontend in place of --sequential_ba, without
+     device-accurate timings or the BA iteration stream, in turns with
+     the --sequential_ba line and with 26's (sequential, pipelined,
+     concurrent, concurrent, pipelined, sequential), each with the gates
+     of 7 (ATE against 2.77 mm, printed beside the formula's 1.18 mm, map
+     median, 6 keyframes, PLY) and one launch per frame; print warm
+     frames/s, the CLI's wall time and peak device memory of each;
+ 25. the same 51 frames in process through BadSlam, built as the CLI
+     builds it (page-locked prefetcher), under
+     torch.cuda.set_sync_debug_mode("error") from the first process_frame
+     to the last; then finalize_pipelined and the ATE and map gates; the
+     kernel held against its plain version on a frame of the run (error
+     0.0); and torch.profiler over three warm frames (a keyframe and two
+     more) of the host front-end and of each pipelined one: launches and
+     synchronizing calls inside the frames' span, GN iterations and
+     device-busy share per frame, the share also derived without the
+     profiler's slowdown (profiled busy ms over the same mode's warm CLI
+     ms), and the kernel's launches over the run (one per frame);
+ 26. --pipelined_frontend --pipelined_concurrent_ba: on the CLI in 24's
+     turns, and in process as 25, the guard covering both threads; print
+     the streams' priorities, the BA iterations run and dropped, and
+     whether both threads stopped;
+ 27. the device loop closure: tests/test_pipelined.py's drifted map at
+     640x480 (config2's scene with the pipelined front-end), the revisit
+     frame under the sync guard; check: the event reads device-pending
+     before finalize_pipelined and is applied after it, matched to
+     keyframe 0, and the revisit lies within 0.04 m of the truth (the
+     drift was 0.08 m); print the closing frame's ms and the closure
+     program's launches under torch.profiler;
+ 28. self-calibration under the pipelined front-end with
+     --optimize_intrinsics (the step acts from the tenth keyframe), in
+     process under the sync guard: the joint PCG solve inline on 12 frames
+     of 14's dataset with a keyframe every frame, and the alternated step
+     on the BA thread on 25 frames with a keyframe every second one;
+     check: no synchronizing call, the ATE gate, the step ran and moved
+     the cameras, the front-end took a calibration the thread published,
+     one launch per frame.
+Phases 17-22, 24-26 and 28 run after 14, on its dataset, and before 15;
+27 runs last.
 
 The next-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA device and no network.
@@ -1160,12 +1199,14 @@ def check_config2(device) -> dict:
   return {"launches": launches}
 
 
-def profile_device(fn) -> dict:
+def profile_device(fn, warm: bool = True) -> dict:
   """Kernel launches (host cu*LaunchKernel* calls), synchronizing CUDA
   calls and device-busy ms (the union of the device's kernel, copy and set
-  intervals) of one call of ``fn`` under torch.profiler."""
+  intervals) of one call of ``fn`` under torch.profiler, after one call
+  outside it unless ``fn`` ran warm already (``warm`` False)."""
   import torch
-  fn()
+  if warm:
+    fn()
   torch.cuda.synchronize()
   activities = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -1177,9 +1218,8 @@ def profile_device(fn) -> dict:
   events = prof.events()
   launches = sum(1 for e in events
                  if "LaunchKernel" in e.name and e.name.startswith("cu"))
-  syncs = sum(1 for e in events
-              if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                            "cudaMemcpy", "cudaEventSynchronize"))
+  names = sync_names(events)
+  syncs = sum(names.values())
   spans = sorted((e.time_range.start, e.time_range.end) for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
   busy, end = 0.0, float("-inf")
@@ -1188,7 +1228,17 @@ def profile_device(fn) -> dict:
       busy += e_ - max(s_, end)
       end = e_
   return {"launches": launches, "syncs": syncs, "busy_ms": busy / 1e3,
-          "wall_ms": wall_ms}
+          "wall_ms": wall_ms, "sync_names": names}
+
+
+def sync_names(events) -> dict:
+  """Synchronizing CUDA calls among profiler events, by name and count."""
+  names = {}
+  for e in events:
+    if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                  "cudaMemcpy", "cudaEventSynchronize"):
+      names[e.name] = names.get(e.name, 0) + 1
+  return names
 
 
 def check_bow_blackout(device) -> dict:
@@ -1550,14 +1600,15 @@ def run_input_paths(workdir: str, data: str, frames: int) -> dict:
 
 
 def compare_prefetch(workdir: str, data: str) -> dict:
-  """Phase 22: the odometry-only run (phase 5's flags) without and with
-  the frame prefetcher, in turns (without, with, with, without): the
-  "Preprocessing" phase's warm mean."""
+  """Phase 22: the odometry-only run (phase 5's flags) over the first
+  INPUT_PATH_FRAMES frames without and with the frame prefetcher, in turns
+  (without, with, with, without): the "Preprocessing" phase's warm mean."""
   from badslam_tpu_torch.io import dataset as dataset_io
   argv = [data, "--keyframe_interval", "5", "--num_scales", "5",
           "--max_depth", "5.0", "--max_num_ba_iterations_per_keyframe", "0",
           "--no_loop_detection", "--sequential_ba", "--restrict_fps_to", "0",
-          "--device_accurate_timings", "--quiet"]
+          "--device_accurate_timings", "--quiet",
+          "--end_frame", str(INPUT_PATH_FRAMES - 1)]
   enable = dataset_io.RGBDVideo.enable_prefetch
   ms = {"without": [], "with": []}
   fps = {"without": [], "with": []}
@@ -1566,7 +1617,8 @@ def compare_prefetch(workdir: str, data: str) -> dict:
     if name == "without":
       dataset_io.RGBDVideo.enable_prefetch = lambda self, **kwargs: False
     try:
-      run = run_cli(argv, f"odometry-only {name} prefetcher")
+      run = run_cli(argv, f"odometry-only {name} prefetcher",
+                    launches_expected=INPUT_PATH_FRAMES)
     finally:
       dataset_io.RGBDVideo.enable_prefetch = enable
     launches += run["launches"]
@@ -1579,6 +1631,502 @@ def compare_prefetch(workdir: str, data: str) -> dict:
         f"non-blocking copies); warm frames/s without {fps['without']}, "
         f"with {fps['with']}")
   return {"launches": launches, "ms": ms}
+
+
+
+# --- the pipelined front-end (phases 24-27) ---
+
+# Phases 24 and 26 in turns: the same command line with --sequential_ba,
+# with --pipelined_frontend, and with --pipelined_concurrent_ba added.
+PIPELINED_TURNS = ("sequential", "pipelined", "concurrent", "concurrent",
+                   "pipelined", "sequential")
+PROFILED_FRAMES = (10, 11, 12)   # a keyframe and the two frames after it
+
+
+def pipelined_argv(workdir: str, data: str, tag: str, mode: str) -> list:
+  """Phase 7's command line without device-accurate timings and without the
+  BA iteration stream (its surfel count is a read of the map), with
+  --sequential_ba, or with --pipelined_frontend in its place (``mode``
+  "pipelined"), plus --pipelined_concurrent_ba ("concurrent")."""
+  argv = ba_path_argv(workdir, data, tag)
+  argv.remove("--device_accurate_timings")
+  i = argv.index("--save_timings")
+  del argv[i:i + 2]
+  if mode != "sequential":
+    argv.remove("--sequential_ba")
+    argv.append("--pipelined_frontend")
+  if mode == "concurrent":
+    argv.append("--pipelined_concurrent_ba")
+  return argv
+
+
+def pl_thread_report(slam, stats, label: str) -> dict:
+  """The pipelined BA thread's iterations (run, dropped by the backlog cap),
+  the two streams' priorities, and whether both threads stopped."""
+  iterations = (stats["BA thread iteration"].count
+                if "BA thread iteration" in stats else 0)
+  priorities = None
+  if slam._main_stream is not None:
+    priorities = (slam._main_stream.priority, slam._ba_stream.priority)
+  alive = [t.name for t in threading.enumerate()
+           if t.name == "pl_ba_thread" and t.is_alive()]
+  stopped = slam._pl_ba_thread is None and not alive
+  print(f"{label}: {iterations} BA thread iterations, "
+        f"{slam.pl_ba_dropped} dropped by the backlog cap, stream "
+        f"priorities (main, BA) {priorities}, both threads stopped "
+        f"{stopped}")
+  if (iterations < 1 or "Bundle adjustment" in stats or not stopped
+      or priorities is None or not priorities[0] < priorities[1]):
+    fail(f"{label}: BA thread iterations {iterations}, inline BA "
+         f"{stats.get('Bundle adjustment')}, priorities {priorities}, "
+         f"stopped {stopped}")
+  return {"iterations": iterations, "dropped": slam.pl_ba_dropped,
+          "priorities": priorities}
+
+
+def run_pipelined_cli(workdir: str, data: str) -> dict:
+  """Phases 24 and 26 (the CLI): --sequential_ba, --pipelined_frontend and
+  --pipelined_frontend --pipelined_concurrent_ba in turns, each with the
+  gates of 7 (ATE, map, keyframes, PLY) and one launch per frame."""
+  out = {"launches": 0, "frames": 0}
+  for mode in ("sequential", "pipelined", "concurrent"):
+    out[mode] = {"fps": [], "wall_s": []}
+  for turn, mode in enumerate(PIPELINED_TURNS):
+    label = f"{mode} CLI run {turn + 1}"
+    tag = f"pl_{mode}{turn}"
+    run = run_cli(pipelined_argv(workdir, data, tag, mode), label)
+    checked = check_map_run(
+        run, label, data, os.path.join(workdir, f"poses_{tag}.txt"),
+        os.path.join(workdir, f"map_{tag}.ply"), KEYFRAME_INTERVAL_BA)
+    stats = run["stats"]
+    if mode == "concurrent":
+      pl_thread_report(run["slam"], stats, label)
+    elif mode == "pipelined":
+      calls = (stats["Bundle adjustment"].count
+               if "Bundle adjustment" in stats else 0)
+      print(f"{label}: {calls} inline transfer-free BA iterations")
+      if calls < 1:
+        fail(f"{label}: no BA iteration ran")
+    fps = warm_frames_per_s(run)
+    wall = wall_seconds(run["stdout"], label)
+    out[mode]["fps"].append(fps)
+    out[mode]["wall_s"].append(wall)
+    out["launches"] += run["launches"]
+    out["frames"] += FRAMES
+    print(f"{label}: ATE RMSE {checked['ate']!r} m (gate {ATE_GATE_M} m; "
+          f"the formula's 640x480 value {ATE_FORMULA_640_M!r} m), warm "
+          f"frames/s {fps!r}, the CLI's wall time for {FRAMES} frames "
+          f"{wall!r} s, {checked['keyframes']} keyframes, "
+          f"{run['launches']} kernel launches, peak device memory "
+          f"{run['peak']} bytes")
+    print_phases(stats, ("Preprocessing", "Odometry", "Keyframe creation",
+                         "Bundle adjustment", "BA thread iteration"),
+                 {"Preprocessing": 2, "Odometry": 2, "Keyframe creation": 1},
+                 how="host wall time, no device barriers")
+    del run
+  print("pipelined front-ends against --sequential_ba, warm frames/s in "
+        "turns: " + "; ".join(f"{m} {out[m]['fps']}" for m in
+                              ("sequential", "pipelined", "concurrent"))
+        + "; wall s: " + "; ".join(f"{m} {out[m]['wall_s']}" for m in
+                                   ("sequential", "pipelined", "concurrent")))
+  return out
+
+
+@contextlib.contextmanager
+def gn_iteration_count():
+  """Counts the odometry's Gauss-Newton iterations launched (each evaluates
+  its convergence test once)."""
+  from badslam_tpu_torch.models import odometry
+  real = odometry.is_scale_n_converged
+  count = [0]
+
+  def counted(*args, **kwargs):
+    count[0] += 1
+    return real(*args, **kwargs)
+
+  odometry.is_scale_n_converged = counted
+  try:
+    yield count
+  finally:
+    odometry.is_scale_n_converged = real
+
+
+def in_process_system(workdir: str, data: str, mode: str, device,
+                      extra: tuple = ()):
+  """A BadSlam built as the CLI builds it from ``mode``'s command line
+  (plus the flags ``extra``): the same configuration, the dataset with the
+  page-locked prefetcher."""
+  from badslam_tpu_torch import main as port_main
+  from badslam_tpu_torch.io import dataset as dataset_io
+  from badslam_tpu_torch.slam.system import BadSlam
+  args = port_main.build_parser().parse_args(
+      pipelined_argv(workdir, data, f"in_{mode}", mode) + list(extra))
+  config = port_main.config_from_args(args)
+  video = dataset_io.load_tum_dataset(
+      data, None, raw_to_float_depth=config.raw_to_float_depth)
+  video.enable_prefetch(pin_memory=True)
+  return BadSlam(config, video, device=device), video
+
+
+PROFILED_SPAN = "profiled frames"
+
+
+def profile_frames(slam, video, frames, label: str) -> dict:
+  """Launches, synchronizing calls and device-busy ms per frame over
+  ``frames`` under torch.profiler (as tools/profile_slice.py counts them),
+  after the frames before them ran unprofiled. Launches and synchronizing
+  calls are counted inside the span that holds the profiled frames (the
+  synchronize that closes the window, and any of the profiler's own, lie
+  outside it and are listed apart). The kernel's launches are counted over
+  every frame, and must be one per frame."""
+  import torch
+  from badslam_tpu_torch.ops import fused_preprocess as fp
+  fp.fused_depth_preprocess.launches = 0
+  for i in range(frames[0]):
+    slam.process_frame(i)
+    video.frames[i].clear_cache()
+  torch.cuda.synchronize()
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with gn_iteration_count() as gn:
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+      with torch.profiler.record_function(PROFILED_SPAN):
+        for i in frames:
+          slam.process_frame(i)
+          video.frames[i].clear_cache()
+      torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  kernel_launches = fp.fused_depth_preprocess.launches
+  if kernel_launches != frames[-1] + 1:
+    fail(f"{label}: fused_depth_preprocess launched {kernel_launches} times "
+         f"in {frames[-1] + 1} frames")
+  events = prof.events()
+  cpu = torch.autograd.DeviceType.CPU
+  spans = [e for e in events
+           if e.name == PROFILED_SPAN and e.device_type == cpu]
+  if len(spans) != 1:
+    fail(f"{label}: {len(spans)} spans named {PROFILED_SPAN!r}")
+  start, end = spans[0].time_range.start, spans[0].time_range.end
+  inside = [e for e in events if e.device_type == cpu
+            and start <= e.time_range.start and e.time_range.end <= end]
+  outside = [e for e in events if e.device_type == cpu
+             and not (start <= e.time_range.start
+                      and e.time_range.end <= end)]
+  launches = sum(1 for e in inside
+                 if "LaunchKernel" in e.name and e.name.startswith("cu"))
+  names = sync_names(inside)
+  # The span's own device-side annotation covers the idle gaps too.
+  device = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name != PROFILED_SPAN)
+  busy, last = 0.0, float("-inf")
+  for s_, e_ in device:
+    if e_ > last:
+      busy += e_ - max(s_, last)
+      last = e_
+  n = len(frames)
+  return {"launches": launches / n, "syncs": sum(names.values()) / n,
+          "busy_ms": busy / 1e3 / n, "wall_ms": wall_ms / n,
+          "busy_share": busy / 1e3 / wall_ms, "gn": gn[0] / n,
+          "sync_names": names, "outside": sync_names(outside),
+          "kernel_launches": kernel_launches}
+
+
+def guarded_run(slam, video, data: str, label: str,
+                frames: int = FRAMES) -> dict:
+  """The first ``frames`` frames of the dataset through ``slam`` under
+  torch.cuda.set_sync_debug_mode("error"), from the first process_frame
+  to the last (the BA thread's iterations included); then the stop and
+  finalize_pipelined, outside. Returns the loop's host seconds, the
+  GN iterations, the kernel's launches and the trajectory's ATE."""
+  import torch
+  from badslam_tpu_torch.io.dataset import read_tum_trajectory
+  from badslam_tpu_torch.ops import fused_preprocess as fp
+  torch.cuda.synchronize()
+  fp.fused_depth_preprocess.launches = 0
+  with gn_iteration_count() as gn:
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      for i in range(frames):
+        slam.process_frame(i)
+        video.frames[i].clear_cache()
+      slam._drain_pl_ba()
+    except RuntimeError as e:
+      fail(f"{label}: a synchronizing call inside the guarded loop: {e}")
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+    loop_s = time.perf_counter() - t0
+  launches = fp.fused_depth_preprocess.launches
+  slam.stop_ba_thread_and_wait()
+  slam.finalize_pipelined()
+  torch.cuda.synchronize()
+  total_s = time.perf_counter() - t0
+  if launches != frames:
+    fail(f"{label}: fused_depth_preprocess launched {launches} times, "
+         f"expected {frames}")
+  _, gt = read_tum_trajectory(os.path.join(data, "groundtruth.txt"))
+  est = np.stack([f.global_T_frame for f in video.frames[:frames]])
+  if not np.isfinite(est).all():
+    fail(f"{label}: non-finite poses")
+  ate = ate_rmse(est[:, :3, 3].astype(np.float64),
+                 gt[:frames, :3, 3].astype(np.float64))
+  if not ate <= ATE_GATE_M:
+    fail(f"{label}: ATE {ate} m > {ATE_GATE_M} m")
+  return {"loop_s": loop_s, "total_s": total_s, "gn": gn[0],
+          "launches": launches, "ate": ate}
+
+
+def check_run_frame_kernel(slam, label: str) -> float:
+  """The kernel against its plain version on one frame of a run, with the
+  calibration the run ended with: the error must be 0.0."""
+  cfg = slam.config
+  frame = slam.preprocess_frame(FRAMES // 2)
+  err = compare_kernel(
+      f"{label}: 640x480 frame {FRAMES // 2}", frame.raw_depth,
+      slam.calibration,
+      dict(sigma_xy=cfg.bilateral_filter_sigma_xy,
+           sigma_inv_depth=cfg.bilateral_filter_sigma_inv_depth,
+           radius_factor=cfg.bilateral_filter_radius_factor,
+           max_depth=cfg.max_depth))
+  if err != 0.0:
+    fail(f"{label}: the kernel differs from its plain version by {err}")
+  return err
+
+
+def run_pipelined_in_process(workdir: str, data: str, device,
+                             pl_cli: dict) -> dict:
+  """Phases 25 and 26 (in process): the 51 frames through BadSlam under the
+  sync guard, inline and with the BA thread; the ATE and map gates; the
+  kernel on one frame of the inline run; and torch.profiler over three warm
+  frames of the host front-end and of each pipelined one. The profiler
+  slows the host, so the device-busy share of a warm frame without it is
+  derived from two runs: the profiled device-busy ms per frame over the
+  mean warm ms per frame of the same mode's CLI runs in ``pl_cli``."""
+  import torch
+  from badslam_tpu_torch.utils import synthetic
+  from badslam_tpu_torch.utils.timing import Timing
+  out = {"launches": 0, "frames": 0, "max_abs_err": 0.0}
+  for mode in ("pipelined", "concurrent"):
+    label = f"{mode} in process under the sync guard"
+    Timing.reset()
+    slam, video = in_process_system(workdir, data, mode, device)
+    try:
+      run = guarded_run(slam, video, data, label)
+    finally:
+      slam.stop_ba_thread_and_wait()
+      video.close_prefetch()
+    pos, _, _ = slam.direct_ba.export_point_cloud()
+    err = synthetic.surfel_map_error(pos)
+    if not err["median_abs_m"] < MAP_MEDIAN_GATE_M:
+      fail(f"{label}: map median |error| {err['median_abs_m']} m")
+    out["launches"] += run["launches"]
+    out["frames"] += FRAMES
+    print(f"{label}: no synchronizing call in {FRAMES} frames; the loop "
+          f"{run['loop_s']!r} s on the host, {run['total_s']!r} s to the "
+          f"finalized trajectory; ATE RMSE {run['ate']!r} m (gate "
+          f"{ATE_GATE_M} m); map median |error| {err['median_abs_m']!r} m; "
+          f"{run['gn'] / (FRAMES - 1)!r} GN iterations launched per tracked "
+          f"frame; {slam.direct_ba.keyframe_count} keyframes, "
+          f"{slam.direct_ba.surfel_count} live surfels")
+    if mode == "concurrent":
+      pl_thread_report(slam, Timing.stats(), label)
+    else:
+      out["max_abs_err"] = check_run_frame_kernel(slam, label)
+    del slam, video
+    gc.collect()
+
+  for mode in ("sequential", "pipelined", "concurrent"):
+    label = f"{mode} front-end, frames {PROFILED_FRAMES} profiled"
+    slam, video = in_process_system(workdir, data, mode, device)
+    try:
+      prof = profile_frames(slam, video, PROFILED_FRAMES, label)
+    finally:
+      slam.stop_ba_thread_and_wait()
+      video.close_prefetch()
+    out["launches"] += prof["kernel_launches"]
+    out["frames"] += PROFILED_FRAMES[-1] + 1
+    cli_ms = 1e3 / statistics.mean(pl_cli[mode]["fps"])
+    prof["derived_share"] = prof["busy_ms"] / cli_ms
+    print(f"{label}: per frame {prof['launches']!r} kernel launches, "
+          f"{prof['syncs']!r} synchronizing calls ({prof['sync_names']}; "
+          f"outside the frames' span, in the whole window: "
+          f"{prof['outside']}), {prof['gn']!r} GN iterations, device busy "
+          f"{prof['busy_ms']!r} ms of {prof['wall_ms']!r} ms "
+          f"({prof['busy_share'] * 100!r}% under the profiler, which slows "
+          f"the host); derived: {prof['busy_ms']!r} ms over the CLI runs' "
+          f"mean warm {cli_ms!r} ms per frame = "
+          f"{prof['derived_share'] * 100!r}%; fused_depth_preprocess "
+          f"launched {prof['kernel_launches']} times in "
+          f"{PROFILED_FRAMES[-1] + 1} frames")
+    out[mode] = prof
+    del slam, video
+    gc.collect()
+  torch.cuda.synchronize()
+  return out
+
+
+# Phase 28: self-calibration under the pipelined front-end, the intrinsics
+# step acting from the tenth keyframe. Per run: mode, joint PCG, frames,
+# keyframe interval. The joint run takes a keyframe every frame (12
+# frames, 12 keyframes, intrinsics from frame 9); the BA thread's run 25
+# frames with a keyframe every second one (13 keyframes, intrinsics from
+# frame 18), so that frames follow the thread's published calibrations.
+PL_CALIBRATION_RUNS = (("pipelined", True, 12, 1),
+                       ("concurrent", False, 25, 2))
+
+
+def run_pipelined_self_calibration(workdir: str, data: str, device) -> dict:
+  """Phase 28: --optimize_intrinsics with --pipelined_frontend, in process
+  under the sync guard (PL_CALIBRATION_RUNS): the joint PCG solve inline
+  (the depth intrinsics among its unknowns), and the alternated step on
+  the BA thread, which hands the front-end each calibration it writes.
+  Gates: no synchronizing call, the ATE, the step ran and moved the
+  cameras, the front-end took a published calibration, one kernel launch
+  per frame."""
+  from badslam_tpu_torch.utils.timing import Timing
+  out = {"launches": 0, "frames": 0}
+  for mode, pcg, n, interval in PL_CALIBRATION_RUNS:
+    label = (f"{mode} self-calibration "
+             f"({'joint PCG' if pcg else 'alternated'}, {n} frames) under "
+             f"the sync guard")
+    Timing.reset()
+    slam, video = in_process_system(
+        workdir, data, mode, device,
+        ("--optimize_intrinsics", "--keyframe_interval", str(interval))
+        + (("--use_pcg",) if pcg else ()))
+    initial = np.array([[float(c.fx), float(c.fy), float(c.cx), float(c.cy)]
+                        for c in (video.depth_camera, video.color_camera)],
+                       np.float32)
+    try:
+      run = guarded_run(slam, video, data, label, frames=n)
+    finally:
+      slam.stop_ba_thread_and_wait()
+      video.close_prefetch()
+    stats = Timing.stats()
+    step = "BA PCG" if pcg else "BA intrinsics optimization"
+    steps = stats[step].count if step in stats else 0
+    ba = slam.direct_ba
+    depth = ba.calibration.depth_intr.cpu().numpy()
+    color = ba.color_intr.cpu().numpy()
+    moved = float(np.abs(np.stack([depth, color]) - initial).max())
+    front = None
+    if mode == "concurrent":
+      pl_thread_report(slam, stats, label)
+      front = slam._front_calibration.depth_intr.cpu().numpy()
+    print(f"{label}: no synchronizing call in {n} frames; the loop "
+          f"{run['loop_s']!r} s on the host; ATE RMSE {run['ate']!r} m "
+          f"(gate {ATE_GATE_M} m); {steps} '{step}' spans; depth intrinsics "
+          f"{depth.tolist()}, color {color.tolist()} (from "
+          f"{initial.tolist()}: {moved!r} px at most), a "
+          f"{float(ba.calibration.a)!r}; the front-end's last depth "
+          f"intrinsics {None if front is None else front.tolist()}; "
+          f"{ba.keyframe_count} keyframes, surfel store capacity "
+          f"{ba.surfels.capacity}")
+    print_phases(stats, ("Odometry", "Bundle adjustment",
+                         "BA thread iteration", step, "BA surfel creation",
+                         "BA geometry optimization", "BA pose optimization"),
+                 {}, how="host wall time, no device barriers")
+    if steps < 1 or not moved > 1e-3:
+      fail(f"{label}: the intrinsics step ran {steps} times and moved the "
+           f"cameras {moved} px")
+    if front is not None and not np.abs(front - initial[0]).max() > 0:
+      fail(f"{label}: the front-end never took a published calibration")
+    out["launches"] += run["launches"]
+    out["frames"] += n
+    del slam, video
+    gc.collect()
+  return out
+
+
+def pin_frames(video) -> None:
+  """Page-locked copies of in-memory frames, as the CLI's prefetcher
+  makes them, so that their uploads do not block the host."""
+  import torch
+  for f in video.frames:
+    f._pinned = (torch.from_numpy(f.rgb()).pin_memory(),
+                 torch.from_numpy(f.depth_raw().view(np.int16)).pin_memory())
+
+
+def check_device_closure(device) -> dict:
+  """Phase 27: tests/test_pipelined.py's drifted map at 640x480 with the
+  pipelined front-end: 10 frames, 0.06 m and 0.08 m of drift put into the
+  device poses of keyframes 3 and 4, then the revisit of frame 0 under the
+  sync guard."""
+  import torch
+  from badslam_tpu_torch.config import BadSlamConfig
+  from badslam_tpu_torch.loop import device_closure
+  from badslam_tpu_torch.loop.detector import LoopDetector
+  from badslam_tpu_torch.ops import fused_preprocess as fp
+  from badslam_tpu_torch.slam.system import BadSlam
+  label = "device closure"
+  traj = twist_trajectory(10, [0.003, 0.001, 0, 0.0008, 0, 0])
+  traj.append(traj[0].copy())
+  cam, video = checker_plane_video(traj)
+  pin_frames(video)
+  cfg = BadSlamConfig(**dict(LOOP_SCENE, pipelined_frontend=True,
+                             enable_loop_detection=True))
+  detector = LoopDetector(cfg, cam, recent_exclude=2)
+  slam = BadSlam(cfg, video, device=device, loop_detector=detector)
+  calls = []
+  real = device_closure.verify_and_close
+
+  def recording(*args):
+    calls.append(args)
+    return real(*args)
+
+  device_closure.verify_and_close = recording
+  fp.fused_depth_preprocess.launches = 0
+  try:
+    for i in range(10):
+      slam.process_frame(i)
+    poses = slam.direct_ba.kf.global_T_frame.cpu().numpy().copy()
+    drift = 0.08
+    for s_, d in ((3, 0.06), (4, drift)):
+      poses[s_][0, 3] += d
+    slam.direct_ba.kf = slam.direct_ba.kf._replace(
+        global_T_frame=torch.from_numpy(poses).to(device))
+    torch.cuda.synchronize()
+    before = len(calls)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      slam.process_frame(10, force_keyframe=True)
+    except RuntimeError as e:
+      fail(f"{label}: a synchronizing call in the closing frame: {e}")
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    device_ms = (time.perf_counter() - t0) * 1e3
+    pending = detector.events[-1].reason if detector.events else None
+    slam.finalize_pipelined()
+  finally:
+    device_closure.verify_and_close = real
+  launches = fp.fused_depth_preprocess.launches
+  if launches != len(traj):
+    fail(f"{label}: fused_depth_preprocess launched {launches} times, "
+         f"expected {len(traj)}")
+  event = detector.events[-1] if detector.events else None
+  err = float(np.linalg.norm(video.frames[10].global_T_frame[:3, 3]
+                             - traj[10][:3, 3]))
+  print(f"{label}: events {detector.events}; the closing event read "
+        f"{pending!r} before finalize; revisit error {err!r} m (gate 0.04 m "
+        f"of the {drift} m drift)")
+  if not (pending == "device-pending" and event and event.applied
+          and event.matched_slot == 0 and err < 0.04
+          and len(calls) == before + 1):
+    fail(f"{label}: not closed onto keyframe 0 within the gate")
+  prof = profile_device(lambda: real(*calls[-1]), warm=False)
+  print(f"{label}: the closing frame {host_ms!r} ms on the host, "
+        f"{device_ms!r} ms to its device work's end; the closure program "
+        f"alone under torch.profiler: {prof['launches']} kernel launches, "
+        f"{prof['syncs']} synchronizing calls (with the window's closing "
+        f"one and one of the profiler's own: {prof['sync_names']}), device "
+        f"busy "
+        f"{prof['busy_ms']!r} ms of {prof['wall_ms']!r} ms")
+  return {"launches": launches, "frames": len(traj)}
 
 
 def main() -> int:
@@ -1631,8 +2179,12 @@ def main() -> int:
     threaded = run_threaded_self_calibration(workdir, data)
     inputs = run_input_paths(workdir, data, INPUT_PATH_FRAMES)
     prefetch = compare_prefetch(workdir, data)
+    pl_cli = run_pipelined_cli(workdir, data)
+    pl_proc = run_pipelined_in_process(workdir, data, device, pl_cli)
+    pl_calibration = run_pipelined_self_calibration(workdir, data, device)
   config2 = check_config2(device)
   blackout = check_bow_blackout(device)
+  pl_closure = check_device_closure(device)
   # The kernel's launches on the main paths: one per frame of each CLI run
   # and of the two loop scenes, and the restored keyframes of the state
   # round trip.
@@ -1641,12 +2193,16 @@ def main() -> int:
               + loop_cli["launches"] + defaults["launches"]
               + threaded["launches"] + inputs["launches"]
               + prefetch["launches"] + config2["launches"]
-              + blackout["launches"])
-  frames = (14 * FRAMES + 3 * INPUT_PATH_FRAMES
-            + (KEYFRAME_INTERVAL_BA + 2) + 11 + blackout["frames"])
+              + blackout["launches"] + pl_cli["launches"]
+              + pl_proc["launches"] + pl_calibration["launches"]
+              + pl_closure["launches"])
+  frames = (10 * FRAMES + 7 * INPUT_PATH_FRAMES
+            + (KEYFRAME_INTERVAL_BA + 2) + 11 + blackout["frames"]
+            + pl_cli["frames"] + pl_proc["frames"]
+            + pl_calibration["frames"] + pl_closure["frames"])
   kernel["max_abs_err"] = max(kernel["max_abs_err"],
                               self_calibration["max_abs_err"],
-                              inputs["max_abs_err"])
+                              inputs["max_abs_err"], pl_proc["max_abs_err"])
   foreign = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "badslam_tpu"))
   if foreign:

@@ -121,7 +121,9 @@ def test_port_entry_points_import_nothing_of_jax_or_the_jax_package():
           " badslam_tpu_torch.models.intrinsics_opt,"
           " badslam_tpu_torch.loop.detector, badslam_tpu_torch.loop.bow,"
           " badslam_tpu_torch.loop.ransac, badslam_tpu_torch.loop.pose_graph,"
-          " badslam_tpu_torch.loop.device_closure; "
+          " badslam_tpu_torch.loop.device_closure,"
+          " badslam_tpu_torch.slam.pipelined, badslam_tpu_torch.utils.transfer,"
+          " badslam_tpu_torch.geometry.se3; "
           "badslam_tpu_torch.main.build_parser(); "
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           "('jax', 'jaxlib', 'badslam_tpu')); assert not bad, bad")

@@ -179,8 +179,13 @@ def test_timings_stream_and_unported_options():
   assert len(lines) == iterations
   assert lines[0] == (f"BA_count 0 inner_iteration 0 keyframe_count 2 "
                       f"surfel_count {int(lines[0].split()[-1])}\n")
-  with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+  # Transfer-free BA (the pipelined front-end's) needs a fixed window, as
+  # in the reference, and then runs exactly max_iterations.
+  with pytest.raises(ValueError, match="fixed active window"):
     pba.bundle_adjustment(max_iterations=1, transfer_free=True)
+  assert pba.bundle_adjustment(
+      max_iterations=2, active_keyframe_window_start=0,
+      active_keyframe_window_end=1, transfer_free=True) == (2, False)
 
 
 def test_direct_ba_defaults_to_cuda_and_allocates_on_its_device(monkeypatch):

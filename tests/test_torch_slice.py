@@ -275,8 +275,6 @@ def test_cli_ba_options_run(dataset, tmp_path, flags, map_gate):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--pipelined_frontend"],
-    ["--pipelined_concurrent_ba"],
     ["--render_preview", "x"],
     ["--mesh_devices", "2"],
     ["--prewarm"],
