@@ -13,20 +13,24 @@ from typing import Optional, Tuple
 import numpy as np
 
 
-def umeyama_alignment(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
-  """Least-squares rigid transform T (4, 4) with dst ~= T @ src (the
-  Horn/Umeyama closed form)."""
+def umeyama_alignment(src: np.ndarray, dst: np.ndarray,
+                      with_scale: bool = False) -> np.ndarray:
+  """Least-squares transform T (4, 4) with dst ~= T @ src (the Horn/Umeyama
+  closed form): rigid, or a similarity with ``with_scale``."""
   mu_s = src.mean(axis=0)
   mu_d = dst.mean(axis=0)
   xs = src - mu_s
   xd = dst - mu_d
   cov = xd.T @ xs / len(src)
-  U, _, Vt = np.linalg.svd(cov)
+  U, S, Vt = np.linalg.svd(cov)
   d = np.sign(np.linalg.det(U @ Vt))
-  R = U @ np.diag([1.0, 1.0, d]) @ Vt
+  D = np.diag([1.0, 1.0, d])
+  R = U @ D @ Vt
+  c = np.trace(np.diag(S) @ D) / ((xs ** 2).sum() / len(src)) \
+      if with_scale else 1.0
   T = np.eye(4)
-  T[:3, :3] = R
-  T[:3, 3] = mu_d - R @ mu_s
+  T[:3, :3] = c * R
+  T[:3, 3] = mu_d - c * R @ mu_s
   return T
 
 

@@ -18,12 +18,21 @@ With no flag, BA runs on its thread and loop detection on another:
       [--export_poses out.txt] [--export_point_cloud map.ply] \\
       [--export_reconstruction dense.ply] \\
       [--export_calibration base] [--import_calibration base] \\
-      [--save_state state.npz] [--load_state state.npz] ...
+      [--save_state state.npz] [--load_state state.npz] \\
+      [--render_preview dir [--render_mode M] [--render_every N]] \\
+      [--profile_dir dir] ...
 
 Frames are decoded by a prefetching thread pool ahead of the frame loop
 (into page-locked memory on the GPU). ``--no_active_kf_window`` is accepted
 and changes nothing: the port's BA phases loop over the keyframes that take
 part, so there is no window.
+
+``--render_preview`` renders the final map from the keyframes' viewpoints
+into PNGs after every export (``render.py``). ``--profile_dir`` writes a
+``torch.profiler`` trace of the run, from the system's construction to the
+last preview, as a gzipped Chrome trace that TensorBoard and Perfetto open:
+the CPU ops of every thread and the device's kernels and copies on every
+CUDA stream.
 
 Flags whose work is not ported yet are refused (SystemExit), each naming
 the ROADMAP item that will port it; none is ignored silently.
@@ -242,16 +251,8 @@ def _refuse_unported_flags(args) -> None:
   """CLI-only flags outside the port (the configuration's own fields are
   checked by BadSlam)."""
   from badslam_tpu_torch.slam.direct_ba import unported
-  refusals = [
-      (args.mesh_devices > 1, "--mesh_devices", 'item 11 "Distribution"'),
-      (args.render_preview, "--render_preview",
-       'item 9 "The rest of the library"'),
-      (args.profile_dir, "--profile_dir",
-       'item 9 "The rest of the library"'),
-  ]
-  for refused, what, item in refusals:
-    if refused:
-      raise SystemExit(unported(what, item))
+  if args.mesh_devices > 1:
+    raise SystemExit(unported("--mesh_devices", 'item 11 "Distribution"'))
   if args.prewarm or args.prewarm_keyframes > 0:
     raise SystemExit(
         "--prewarm: the port has no compile step to move out of the frame "
@@ -293,7 +294,60 @@ def run(args) -> int:
       video.close_prefetch()
 
 
+def _start_profiler(device):
+  """A torch.profiler session over the CPU ops of every thread (the BA and
+  loop-detection threads too) and, on a GPU, the kernels and copies of
+  every CUDA stream; shapes and stacks are off, since a frame launches
+  ~15,000 kernels."""
+  from torch._C._profiler import _ExperimentalConfig
+  from torch.profiler import ProfilerActivity, profile
+  activities = [ProfilerActivity.CPU]
+  if device.type == "cuda":
+    activities.append(ProfilerActivity.CUDA)
+  prof = profile(activities=activities,
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True))
+  prof.start()
+  return prof
+
+
+def _stop_profiler(prof, device, out_dir: str, quiet: bool) -> None:
+  """Stop the session once the device is done and write its trace into
+  ``out_dir`` as badslam.<ns>.pt.trace.json.gz, the name TensorBoard's
+  profile plugin looks for, at gzip level 1 (faster than the default 9;
+  the trace of a whole run is large)."""
+  import gzip
+  import os
+  import shutil
+  import torch
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+  t0 = time.perf_counter()
+  prof.stop()
+  os.makedirs(out_dir, exist_ok=True)
+  path = os.path.join(out_dir, f"badslam.{time.time_ns()}.pt.trace.json.gz")
+  raw = path[:-len(".gz")]
+  prof.export_chrome_trace(raw)
+  with open(raw, "rb") as f, gzip.open(path, "wb", compresslevel=1) as g:
+    shutil.copyfileobj(f, g)
+  os.remove(raw)
+  if not quiet:
+    print(f"Wrote profiler trace {path} ({os.path.getsize(path)} bytes in "
+          f"{time.perf_counter() - t0:.2f} s)")
+
+
 def _run_slam(args, config, video, slam) -> int:
+  # jax.profiler's span in the reference: from the system's construction to
+  # the last output. Stopped on the way out of a failing run too.
+  prof = _start_profiler(slam.device) if args.profile_dir else None
+  try:
+    return _run_and_export(args, config, video, slam)
+  finally:
+    if prof is not None:
+      _stop_profiler(prof, slam.device, args.profile_dir, args.quiet)
+
+
+def _run_and_export(args, config, video, slam) -> int:
   from badslam_tpu_torch.io import dataset as dataset_io
   from badslam_tpu_torch.io import ply
   from badslam_tpu_torch.io import state as state_io
@@ -386,6 +440,14 @@ def _run_slam(args, config, video, slam) -> int:
     export_reconstruction(slam, args.export_reconstruction,
                           args.reconstruction_sparsification,
                           quiet=args.quiet)
+  if args.render_preview:
+    from badslam_tpu_torch import render
+    n = render.render_keyframe_previews(
+        slam, args.render_preview, mode=args.render_mode,
+        splat_half_extent_in_pixels=args.splat_half_extent_in_pixels,
+        every=args.render_every, quiet=args.quiet)
+    if not args.quiet:
+      print(f"Rendered {n} keyframe previews into {args.render_preview}")
   if slam.direct_ba.timings_stream is not None:
     slam.direct_ba.timings_stream.close()
     slam.direct_ba.timings_stream = None

@@ -1,29 +1,28 @@
-"""Synthetic RGB-D data: the heightmap world and a TUM-format writer.
+"""Synthetic RGB-D data: the convergence tests' scenes and the heightmap
+world.
 
-Port of the parts of ``badslam_tpu/utils/synthetic.py`` (the convergence
-tests' camera and the heightmap world) and ``badslam_tpu/utils/tum_synth.py``
-(the constant-twist trajectory and the dataset writer) that the port needs,
-and the map-quality metric. The world is a smooth random heightmap z(x, y)
-about 1 m in front of the camera, with band-limited value-noise texture, so
-depth and photometric residuals agree across views. A second world, a set
-of infinite planes seen from scattered poses, serves the self-calibration
-checks and, with checker texture, the loop-closure scenes
-(``make_synthetic_video``). Everything here is numpy on the host, except
-the poses, which use the port's SE(3) exponential, and the test-keyframe
-pipeline, which runs the port's normal and radius stencils.
+Port of ``badslam_tpu/utils/synthetic.py``: the convergence tests' camera,
+plane scene and intensity image, the heightmap world (with floating
+occluder boxes and a repeating texture as options), and the map-quality
+metric. The heightmap world is a smooth random surface z(x, y) about 1 m in
+front of the camera, with band-limited value-noise texture, so depth and
+photometric residuals agree across views. A second world, a set of infinite
+planes seen from scattered poses, serves the self-calibration checks and,
+with checker texture, the loop-closure scenes (``make_synthetic_video``).
+Everything here is numpy on the host, except the poses, which use the
+port's SE(3) exponential, and the test-keyframe pipeline, which runs the
+port's normal and radius stencils. The TUM-format dataset writer is
+``utils/tum_synth.py`` (its names are reachable here too).
 """
 
 from __future__ import annotations
 
-import concurrent.futures
-import os
 from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from PIL import Image
 
-from badslam_tpu_torch.geometry import se3, se3_np
+from badslam_tpu_torch.geometry import se3
 from badslam_tpu_torch.geometry.camera import PinholeCamera
 from badslam_tpu_torch.io.dataset import Frame, RGBDVideo
 from badslam_tpu_torch.ops import depth_proc
@@ -37,6 +36,64 @@ def default_test_camera(width: int = 640, height: int = 480
   return PinholeCamera(width=width, height=height, fx=0.5 * height,
                        fy=0.5 * height, cx=0.5 * width - 0.5,
                        cy=0.5 * height - 0.5)
+
+
+def make_plane_scene(camera: PinholeCamera, num_planes: int = 3,
+                     plane_distance: float = 2.5, border: int = 10,
+                     raw_to_float_depth: float = 1.0 / 1000.0, seed: int = 0,
+                     rng: Optional[np.random.Generator] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+  """The convergence tests' scene (test_pose_optimization_geometric_
+  residual.cc:85-110 of the original): ``num_planes`` planes with random
+  normals (z forced to -1 before normalization) at ``plane_distance``, each
+  seen in its own vertical stripe of the image inside a ``border``, depth
+  quantized to the raw sensor step. Returns (depth (H, W) float32, 0 where
+  invalid; the plane normals (num_planes, 3))."""
+  if rng is None:
+    rng = np.random.default_rng(seed)
+  w, h = camera.width, camera.height
+  depth = np.zeros((h, w), np.float32)
+  normals = np.zeros((num_planes, 3), np.float32)
+  # Center-convention ray directions with z = 1.
+  nx = (np.arange(w, dtype=np.float32) - (float(camera.cx) - 0.5)) \
+      / float(camera.fx)
+  ny = (np.arange(h, dtype=np.float32) - (float(camera.cy) - 0.5)) \
+      / float(camera.fy)
+  dir_x, dir_y = np.meshgrid(nx, ny)
+  min_x, max_x = border, w - border - 1
+  for p in range(num_planes):
+    n = rng.uniform(-1.0, 1.0, size=3).astype(np.float32)
+    n[2] = -1.0
+    n /= np.linalg.norm(n)
+    normals[p] = n
+    left = int(min_x + (max_x - min_x) * ((2 * p) / (2.0 * num_planes - 1)))
+    right = int(min_x + (max_x - min_x)
+                * ((2 * p + 1) / (2.0 * num_planes - 1)))
+    # The ray t (dir_x, dir_y, 1) meets n . x + plane_distance = 0.
+    t = -plane_distance / (n[0] * dir_x + n[1] * dir_y + n[2])
+    region = np.zeros((h, w), bool)
+    region[border:h - border, left:right] = True
+    z = np.where(region & (t > 0), t, 0.0)
+    z = np.floor(z / raw_to_float_depth + 0.5) * raw_to_float_depth
+    depth = np.where(region, z.astype(np.float32), depth)
+  return depth, normals
+
+
+def intensity_function_image(camera: PinholeCamera, kind: str = "sine"
+                             ) -> np.ndarray:
+  """An analytic intensity image for photometric tests, in [0, 1] on u8
+  steps: ``sine``, a sum of sines in x and y, or ``ramp``."""
+  w, h = camera.width, camera.height
+  xs, ys = np.meshgrid(np.arange(w, dtype=np.float32),
+                       np.arange(h, dtype=np.float32))
+  if kind == "sine":
+    v = 0.5 + 0.25 * np.sin(0.1 * xs) + 0.25 * np.sin(0.1 * ys)
+  elif kind == "ramp":
+    v = (xs + ys) / (w + h)
+  else:
+    raise ValueError(kind)
+  u8 = np.floor(255.0 * v + 0.5)
+  return u8.astype(np.float32) * np.float32(1.0 / 255.0)
 
 
 def _value_noise_2d(x: np.ndarray, y: np.ndarray, cell: float,
@@ -69,14 +126,59 @@ def heightmap_z(x: np.ndarray, y: np.ndarray, z_distance: float = 1.0,
   return z_distance + z_variation * (2.0 * v / 1.5 - 1.0)
 
 
+def occlusion_boxes(seed: int = 5, z_distance: float = 1.0,
+                    spread: float = 0.55, num_boxes: int = 7) -> np.ndarray:
+  """Floating axis-aligned boxes between the camera and the heightmap, made
+  from ``seed``: their silhouettes put depth discontinuities and occlusion
+  shadows into the images, their sides steep normals. Returns (B, 2, 3):
+  per box its (min corner, max corner) in the world frame, 0.18-0.38 m
+  above the surface (in front of it for the downward-looking cameras)."""
+  rng = np.random.default_rng(seed + 1000)
+  boxes = []
+  for _ in range(num_boxes):
+    cx_ = rng.uniform(-spread, spread)
+    cy_ = rng.uniform(-spread * 0.5, spread * 1.5)
+    half = rng.uniform(0.05, 0.11, size=2)
+    height = rng.uniform(0.02, 0.05)
+    top = z_distance - rng.uniform(0.18, 0.38)
+    boxes.append([[cx_ - half[0], cy_ - half[1], top],
+                  [cx_ + half[0], cy_ + half[1], top + height]])
+  return np.asarray(boxes, np.float64)
+
+
+def _ray_box_hits(o: np.ndarray, dirs: np.ndarray, boxes: np.ndarray):
+  """Nearest positive ray/box hit per pixel by the slab method. Returns
+  (t_hit, hit_mask), t_hit = +inf where no box is hit; a ray that starts
+  inside a box hits where it leaves it."""
+  t_best = np.full(dirs.shape[:-1], np.inf)
+  inv = 1.0 / np.where(np.abs(dirs) < 1e-12, 1e-12, dirs)
+  for bmin, bmax in boxes:
+    t0 = (bmin[None, None, :] - o[None, None, :]) * inv
+    t1 = (bmax[None, None, :] - o[None, None, :]) * inv
+    tnear = np.minimum(t0, t1).max(axis=-1)
+    tfar = np.maximum(t0, t1).min(axis=-1)
+    hit = (tfar >= tnear) & (tfar > 1e-6)
+    t_entry = np.where(tnear > 1e-6, tnear, tfar)
+    t_best = np.where(hit & (t_entry < t_best), t_entry, t_best)
+  return t_best, np.isfinite(t_best)
+
+
 def render_heightmap(camera: PinholeCamera, global_T_frame: np.ndarray,
                      z_distance: float = 1.0, z_variation: float = 0.05,
                      seed: int = 5, texture_cell: float = 0.02,
                      border: int = 2,
-                     raw_to_float_depth: float = 1.0 / 5000.0):
+                     raw_to_float_depth: float = 1.0 / 5000.0,
+                     boxes: Optional[np.ndarray] = None,
+                     texture_period: Optional[float] = None):
   """(depth, intensity) of the heightmap from a pose, by fixed-point ray
   casting. Depth is quantized to the raw sensor step; intensity is
-  band-limited value noise on u8 steps."""
+  band-limited value noise on u8 steps.
+
+  ``boxes`` (``occlusion_boxes``): occluders; each pixel sees the nearer of
+  the surface and a box, and box faces carry their own texture.
+  ``texture_period``: the texture repeats with this world period (x and y
+  taken modulo it) while the geometry stays unique, so distinct places look
+  alike to appearance-only place recognition."""
   w, h = camera.width, camera.height
   R = global_T_frame[:3, :3].astype(np.float64)
   o = global_T_frame[:3, 3].astype(np.float64)
@@ -95,6 +197,11 @@ def render_heightmap(camera: PinholeCamera, global_T_frame: np.ndarray,
     px = o[0] + t * dirs[..., 0]
     py = o[1] + t * dirs[..., 1]
     t = (heightmap_z(px, py, z_distance, z_variation, seed) - o[2]) / dz_safe
+  box_hit = None
+  if boxes is not None and len(boxes):
+    t_box, box_mask = _ray_box_hits(o, dirs, np.asarray(boxes, np.float64))
+    box_hit = box_mask & (t_box < t) & ok
+    t = np.where(box_hit, t_box, t)
   depth = np.where(ok & (t > 0.05), t, 0.0)
   depth = np.floor(depth / raw_to_float_depth + 0.5) * raw_to_float_depth
   mask = np.zeros((h, w), bool)
@@ -103,9 +210,21 @@ def render_heightmap(camera: PinholeCamera, global_T_frame: np.ndarray,
 
   px = o[0] + t * dirs[..., 0]
   py = o[1] + t * dirs[..., 1]
+  if texture_period is not None:
+    px = np.mod(px, texture_period)
+    py = np.mod(py, texture_period)
   v = (0.40 * _value_noise_2d(px, py, texture_cell * 17.0, seed + 8)
        + 0.40 * _value_noise_2d(px, py, texture_cell * 5.0, seed + 7)
        + 0.20 * _value_noise_2d(px, py, texture_cell, seed + 9))
+  if box_hit is not None:
+    # The z coordinate breaks the side faces' degeneracy (x or y constant).
+    pz = o[2] + t * dirs[..., 2]
+    bx = px + 3.7 * pz
+    by = py + 1.3 * pz
+    vb = (0.45 * _value_noise_2d(bx, by, texture_cell * 13.0, seed + 21)
+          + 0.35 * _value_noise_2d(bx, by, texture_cell * 4.0, seed + 22)
+          + 0.20 * _value_noise_2d(bx, by, texture_cell, seed + 23))
+    v = np.where(box_hit, vb, v)
   v = 0.15 + 0.7 * v
   u8 = np.clip(np.floor(255.0 * v + 0.5), 0, 255)
   return depth, u8.astype(np.float32) * np.float32(1.0 / 255.0)
@@ -298,90 +417,35 @@ def multi_view_plane_keyframes(
     yield preprocess_like_test_keyframe(depth, camera, intensity, cell), T
 
 
-# Threads that render a dataset's frames.
+# Threads that render a dataset's frames (``tum_synth.write_tum_dataset``).
 RENDER_WORKERS = 8
 
-
-def straight_trajectory(num_frames: int, step=None) -> List[np.ndarray]:
-  """The constant-twist trajectory of the odometry-only benchmark
-  configuration: frame i is exp(i * step)."""
-  if step is None:
-    step = [0.002, 0.0008, -0.0005, 0.0005, -0.00025, 0.0004]
-  step = np.asarray(step, np.float64)
-  return [se3.exp(torch.as_tensor(i * step, dtype=torch.float32)).numpy()
-          for i in range(num_frames)]
+# The dataset writer lives in ``tum_synth``, which imports this module; its
+# names are also reachable here, as the same function objects, for the
+# callers that take them from this module (``tools/``).
+_TUM_SYNTH_NAMES = ("straight_trajectory", "write_tum_dataset",
+                    "write_tum_video")
 
 
-def write_tum_dataset(out_dir: str, trajectory: List[np.ndarray],
-                      width: int = 640, height: int = 480,
-                      depth_scaling: float = 5000.0, fps: float = 30.0,
-                      seed: int = 5,
-                      camera: Optional[PinholeCamera] = None) -> str:
-  """Render the heightmap world along ``trajectory`` and write a TUM
-  dataset: calibration.txt, associated.txt, groundtruth.txt, rgb/*.png
-  (grey as RGB) and depth/*.png (16-bit, depth_scaling * metres). The
-  frames render on a thread pool (numpy's array loops release the
-  interpreter lock), in order."""
-  cam = camera or default_test_camera(width, height)
-
-  def images(T):
-    depth, inten = render_heightmap(cam, T, seed=seed,
-                                    raw_to_float_depth=1.0 / depth_scaling)
-    u8 = np.clip(np.floor(inten * 255.0 + 0.5), 0, 255).astype(np.uint8)
-    return (np.stack([u8, u8, u8], axis=-1),
-            np.floor(depth * depth_scaling + 0.5).astype(np.uint16))
-
-  with concurrent.futures.ThreadPoolExecutor(
-      min(RENDER_WORKERS, os.cpu_count() or 1)) as pool:
-    return _write_tum(out_dir, cam, trajectory, pool.map(images, trajectory),
-                      fps)
-
-
-def write_tum_video(out_dir: str, video: RGBDVideo,
-                    trajectory: List[np.ndarray], fps: float = 30.0) -> str:
-  """Write an in-memory RGBDVideo (``make_synthetic_video``'s) as a TUM
-  dataset, with ``trajectory`` as groundtruth.txt; the depth PNGs hold the
-  video's raw counts, so load it with ``--depth_scaling``
-  1 / ``video.raw_to_float_depth``."""
-  images = ((f.rgb(), f.depth_raw()) for f in video.frames)
-  return _write_tum(out_dir, video.depth_camera, trajectory, images, fps)
-
-
-def _write_tum(out_dir: str, cam: PinholeCamera, trajectory, images,
-               fps: float) -> str:
-  os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
-  os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
-  with open(os.path.join(out_dir, "calibration.txt"), "w") as f:
-    # The file carries the center convention; the loader adds 0.5 back.
-    f.write(f"{float(cam.fx)} {float(cam.fy)} "
-            f"{float(cam.cx) - 0.5} {float(cam.cy) - 0.5}\n")
-  assoc_lines, gt_lines = [], []
-  for i, (T, (rgb, depth_u16)) in enumerate(zip(trajectory, images)):
-    Image.fromarray(rgb).save(os.path.join(out_dir, f"rgb/{i:06d}.png"))
-    Image.fromarray(depth_u16).save(
-        os.path.join(out_dir, f"depth/{i:06d}.png"))
-    ts = i / fps
-    assoc_lines.append(f"{ts:.6f} rgb/{i:06d}.png {ts:.6f} depth/{i:06d}.png")
-    q = se3_np.matrix_to_quaternion(T[:3, :3])
-    t = T[:3, 3]
-    gt_lines.append(f"{ts:.6f} {t[0]:.9f} {t[1]:.9f} {t[2]:.9f} "
-                    f"{q[0]:.9f} {q[1]:.9f} {q[2]:.9f} {q[3]:.9f}")
-  with open(os.path.join(out_dir, "associated.txt"), "w") as f:
-    f.write("\n".join(assoc_lines) + "\n")
-  with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
-    f.write("\n".join(gt_lines) + "\n")
-  return out_dir
+def __getattr__(name):
+  if name in _TUM_SYNTH_NAMES:
+    from badslam_tpu_torch.utils import tum_synth
+    return getattr(tum_synth, name)
+  raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def surfel_map_error(positions: np.ndarray, z_distance: float = 1.0,
-                     z_variation: float = 0.05, seed: int = 5) -> dict:
+                     z_variation: float = 0.05, seed: int = 5,
+                     boxes: Optional[np.ndarray] = None) -> dict:
   """Map-quality metric against the analytic heightmap world.
 
   The world is the graph of z(x, y) = heightmap_z(x, y), so every
   reconstructed surfel has a closed-form ground-truth surface point directly
   below or above it: error_i = pos_z_i - z(pos_x_i, pos_y_i). The slopes are
   small, so the vertical distance overestimates the point-to-surface
-  distance by a few percent only.
+  distance by a few percent only. With ``boxes`` (the occlusion world) a
+  surfel's error is its distance to the nearest surface, box or heightmap,
+  with the heightmap term's sign.
 
   positions: (N, 3) world-frame positions of the valid surfels. Returns
   summary statistics in metres."""
@@ -390,6 +454,17 @@ def surfel_map_error(positions: np.ndarray, z_distance: float = 1.0,
     return {"count": 0}
   err = positions[:, 2] - heightmap_z(positions[:, 0], positions[:, 1],
                                       z_distance, z_variation, seed)
+  if boxes is not None and len(boxes):
+    abs_box = np.full(positions.shape[0], np.inf)
+    for bmin, bmax in np.asarray(boxes, np.float64):
+      q = np.maximum(np.maximum(bmin[None, :] - positions,
+                                positions - bmax[None, :]), 0.0)
+      outside = np.linalg.norm(q, axis=1)
+      inside = np.minimum(np.min(positions - bmin[None, :], axis=1),
+                          np.min(bmax[None, :] - positions, axis=1))
+      d = np.where(outside > 0, outside, np.maximum(inside, 0.0))
+      abs_box = np.minimum(abs_box, d)
+    err = np.where(abs_box < np.abs(err), np.sign(err) * abs_box, err)
   abs_err = np.abs(err)
   return {
       "count": int(positions.shape[0]),

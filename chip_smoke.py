@@ -155,9 +155,30 @@ Phases (any failure exits non-zero and prints no result line):
      on the BA thread on 25 frames with a keyframe every second one;
      check: no synchronizing call, the ATE gate, the step ran and moved
      the cameras, the front-end took a calibration the thread published,
-     one launch per frame.
-Phases 17-22, 24-26 and 28 run after 14, on its dataset, and before 15;
-27 runs last.
+     one launch per frame;
+ 29. the bare defaults over the first 21 frames with --render_preview and
+     --profile_dir: the gates of 19 (rc 0, one launch per frame, ATE <=
+     2.77 mm, map median < 1e-3 m); one color and one depth PNG per
+     keyframe at 640x480, the depth PNG's hit pixels within a median 1e-3
+     m of the heightmap seen from the keyframe's exported pose; a trace
+     that parses and holds the preprocess kernel once per frame; print
+     the trace's bytes and write time, and the render's ms per viewpoint
+     (CUDA events) and launches;
+ 30. the card's render of 29's map against the port's CPU render of it
+     from every keyframe: hit masks differ in at most 0.1% of the pixels,
+     depth where both hit by at most 1e-2 m (print both counts); then a
+     seeded cloud of 2M surfels at 640x480 (31 chunks): ms per viewpoint,
+     launches and peak device memory;
+ 31. the snapshot inspector on 11's saved state with --render,
+     --export_point_cloud and --export_poses: the PLY has 11's surfel
+     count, the trajectory equals 11's exported poses, one preview pair
+     per keyframe.
+Phases 29-31, then 17-22, 24-26 and 28 run after 14, on its dataset, and
+before 15; 27 runs last, before 23. Phase 29 comes before every other
+torch.profiler session of the process: once one has run, the next
+session can lose its first kernel record (torch 2.11: phase 29's trace
+lacked one of its 21 preprocess launches when it ran after 25-27), which a
+CLI run, one session per process, never meets.
 
 The next-to-last line is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA device and no network.
@@ -273,13 +294,9 @@ def fail(msg: str) -> None:
 
 def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:
   """ATE RMSE after the closed-form SE(3) (Horn/Umeyama) alignment of the
-  estimated positions onto the ground truth."""
-  mu_e, mu_g = est.mean(axis=0), gt.mean(axis=0)
-  u, _, vt = np.linalg.svd((gt - mu_g).T @ (est - mu_e))
-  s = np.diag([1.0, 1.0, np.sign(np.linalg.det(u @ vt))])
-  R = u @ s @ vt
-  aligned = (est - mu_e) @ R.T + mu_g
-  return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=1))))
+  estimated positions onto the ground truth (the port's ``eval``)."""
+  from badslam_tpu_torch import eval as port_eval
+  return port_eval.ate_rmse(est, gt)[0]
 
 
 def cuda_median_ms(fn, runs: int = 50) -> float:
@@ -441,11 +458,11 @@ def check_kernel(device) -> dict:
 
 def write_dataset(workdir: str) -> str:
   """Phase 4."""
-  from badslam_tpu_torch.utils import synthetic
+  from badslam_tpu_torch.utils import tum_synth
   data = os.path.join(workdir, "tum640")
   t0 = time.perf_counter()
-  synthetic.write_tum_dataset(data, synthetic.straight_trajectory(FRAMES),
-                              width=640, height=480)
+  tum_synth.write_tum_dataset(data, tum_synth.straight_trajectory(FRAMES),
+                              width=640, height=480, quiet=True)
   print(f"wrote {FRAMES}-frame 640x480 dataset in "
         f"{time.perf_counter() - t0:.1f} s", flush=True)
   return data
@@ -2129,6 +2146,238 @@ def check_device_closure(device) -> dict:
   return {"launches": launches, "frames": len(traj)}
 
 
+# --- the rest of the library (phases 29-31) ---
+
+# Phase 30's gates, the card's render of a map against the port's own CPU
+# render of it (tests/test_torch_render.py): the hit masks differ in at most
+# this share of the pixels, and where both hit, depth by at most this (a
+# splat edge that moves by one ulp of a projected coordinate can hand a
+# pixel to a neighbouring surfel, ~1.7 cm away at 1 m with this camera's
+# 4-pixel cells, on a surface whose slope reaches ~0.5).
+RENDER_FLIP_GATE = 1e-3
+RENDER_DEPTH_GATE_M = 1e-2
+# Phase 30's seeded cloud: 2M surfels, 31 chunks of 65,536.
+SEEDED_SURFELS = 2_000_000
+KERNEL_NAME = "fused_depth_preprocess_kernel"
+
+
+def render_cost(fn) -> dict:
+  """Device ms of one call of ``fn`` (CUDA events, median of 20 after 3
+  warm-up calls) and its kernel launches (torch.profiler)."""
+  return {"ms": cuda_median_ms(fn, runs=20),
+          "launches": profile_device(fn)["launches"]}
+
+
+def run_previews_and_trace(workdir: str, data: str) -> dict:
+  """Phase 29: the bare defaults over INPUT_PATH_FRAMES frames with
+  --render_preview and --profile_dir."""
+  from badslam_tpu_torch import render
+  from badslam_tpu_torch.geometry import se3
+  from badslam_tpu_torch.io import ply
+  from badslam_tpu_torch.io.dataset import read_tum_trajectory
+  from badslam_tpu_torch.utils import synthetic
+  label = "previews and trace"
+  frames = INPUT_PATH_FRAMES
+  previews = os.path.join(workdir, "previews")
+  trace_dir = os.path.join(workdir, "trace")
+  argv = bare_argv(workdir, data, "render") + [
+      "--end_frame", str(frames - 1), "--render_preview", previews,
+      "--profile_dir", trace_dir]
+  run = run_cli(argv, label, launches_expected=frames)
+  _, gt = read_tum_trajectory(os.path.join(data, "groundtruth.txt"))
+  _, est = read_tum_trajectory(os.path.join(workdir, "poses_render.txt"))
+  if est.shape != (frames, 4, 4) or not np.isfinite(est).all():
+    fail(f"{label}: trajectory {est.shape}")
+  ate = ate_rmse(est[:, :3, 3].astype(np.float64),
+                 gt[:frames, :3, 3].astype(np.float64))
+  pos, _, _ = ply.load_point_cloud_ply(os.path.join(workdir,
+                                                    "map_render.ply"))
+  err = synthetic.surfel_map_error(pos)["median_abs_m"]
+  line = (f"{label}: {frames} frames, ATE RMSE {ate!r} m (gate "
+          f"{ATE_GATE_M} m), {len(pos)} surfels, map median |error| {err!r} "
+          f"m (gate {MAP_MEDIAN_GATE_M} m)")
+  if not ate <= ATE_GATE_M or not err < MAP_MEDIAN_GATE_M:
+    fail(line)
+  print(line)
+
+  # One preview pair per keyframe, its depth on the heightmap seen from the
+  # keyframe's exported pose.
+  slam = run["slam"]
+  ba = slam.direct_ba
+  slots = np.flatnonzero(ba.kf.valid.cpu().numpy())
+  kf_frames = ba.kf.frame_index.cpu().numpy()[slots]
+  want = sorted(f"kf_{f:06d}_{k}.png" for f in kf_frames
+                for k in ("color", "depth"))
+  if sorted(os.listdir(previews)) != want:
+    fail(f"{label}: previews {sorted(os.listdir(previews))}, expected {want}")
+  from PIL import Image
+  cam = slam.rgbd_video.depth_camera
+  size = (cam.height, cam.width)
+  medians = []
+  for f in kf_frames:
+    color = np.asarray(Image.open(os.path.join(previews,
+                                               f"kf_{f:06d}_color.png")))
+    raw = np.asarray(Image.open(os.path.join(previews,
+                                             f"kf_{f:06d}_depth.png")))
+    if color.shape != size + (3,) or raw.shape != size \
+        or raw.dtype != np.uint16:
+      fail(f"{label}: preview of frame {f}: {color.shape}, {raw.shape} "
+           f"{raw.dtype}")
+    truth, _ = synthetic.render_heightmap(cam, est[f])
+    hit = (raw > 0) & (truth > 0)
+    medians.append(float(np.median(np.abs(raw[hit] / 5000.0 - truth[hit]))))
+    if not hit.mean() > 0.5 or not medians[-1] < MAP_MEDIAN_GATE_M:
+      fail(f"{label}: frame {f}'s depth preview: {hit.mean()!r} of the "
+           f"pixels hit, median |error| {medians[-1]!r} m")
+  print(f"{label}: {len(kf_frames)} keyframe previews at {cam.width}x"
+        f"{cam.height}, depth "
+        f"median |error| against the heightmap from the exported pose "
+        f"{medians} m (gate {MAP_MEDIAN_GATE_M} m)")
+
+  # The trace.
+  m = re.search(r"Wrote profiler trace (\S+) \((\d+) bytes in ([\d.]+) "
+                r"s\)", run["stdout"])
+  if not m:
+    fail(f"{label}: no profiler trace line in the CLI's output")
+  import gzip
+  t0 = time.perf_counter()
+  with gzip.open(m.group(1), "rt") as f:
+    events = json.load(f)["traceEvents"]
+  read_s = time.perf_counter() - t0
+  kernels = [e for e in events if e.get("cat") == "kernel"]
+  ours = sum(KERNEL_NAME in e.get("name", "") for e in kernels)
+  recorded = {e.get("args", {}).get("correlation") for e in kernels}
+  unmatched = sum(1 for e in events
+                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and "LaunchKernel" in e.get("name", "")
+                  and e.get("args", {}).get("correlation") not in recorded)
+  cpu_threads = {e.get("tid") for e in events if e.get("cat") == "cpu_op"}
+  streams = {e.get("tid") for e in kernels}
+  print(f"{label}: trace {m.group(1)}: {m.group(2)} bytes, written in "
+        f"{m.group(3)} s (read back in {read_s:.1f} s), {len(events)} "
+        f"events, {len(kernels)} kernels on {len(streams)} streams "
+        f"({unmatched} launches without a kernel record), {ours} of them "
+        f"{KERNEL_NAME}; CPU ops of {len(cpu_threads)} threads")
+  if ours != frames:
+    fail(f"{label}: the trace holds {ours} launches of {KERNEL_NAME}, "
+         f"expected {frames}")
+
+  # The render itself, from the first keyframe's viewpoint.
+  f_T_g = se3.inverse(ba.kf.global_T_frame[int(slots[0])])
+  colors = render.surfel_display_colors(ba.surfels, "color")
+  splats = lambda: render.render_surfel_splats(
+      ba.surfels.pos, colors, ba.surfels.valid, f_T_g, ba.color_intr, *size)
+  cost = render_cost(splats)
+  t0 = time.perf_counter()
+  for _ in range(5):
+    render.render_map(ba, f_T_g)
+  map_ms = (time.perf_counter() - t0) / 5 * 1e3
+  print(f"{label}: render of {ba.surfels.capacity} surfel slots "
+        f"({ba.surfel_count} live) at {cam.width}x{cam.height}: "
+        f"{cost['ms']!r} ms per "
+        f"viewpoint on the device (CUDA events), {cost['launches']} kernel "
+        f"launches; render_map with its host copies {map_ms!r} ms")
+  return {"launches": run["launches"], "frames": frames, "slam": slam,
+          "slot": int(slots[0]), "render_ms": cost["ms"],
+          "render_launches": cost["launches"]}
+
+
+def check_render_on_card(previewed: dict, device) -> dict:
+  """Phase 30: the card's render of phase 29's map against the port's CPU
+  render of it, from every keyframe's viewpoint; then a seeded cloud of
+  SEEDED_SURFELS surfels at 640x480."""
+  import torch
+  from badslam_tpu_torch import render
+  from badslam_tpu_torch.geometry import se3
+  ba = previewed["slam"].direct_ba
+  s = ba.surfels
+  colors = render.surfel_display_colors(s, "normals")
+  slots = np.flatnonzero(ba.kf.valid.cpu().numpy())
+  width, height = ba.color_size
+  flips, depth_diff, depth_pixels = 0, 0.0, 0
+  for k in slots:
+    f_T_g = se3.inverse(ba.kf.global_T_frame[int(k)])
+    gpu = [t.cpu() for t in render.render_surfel_splats(
+        s.pos, colors, s.valid, f_T_g, ba.color_intr, height, width)]
+    cpu = render.render_surfel_splats(
+        s.pos.cpu(), colors.cpu(), s.valid.cpu(), f_T_g.cpu(),
+        ba.color_intr.cpu(), height, width)
+    flips += int((gpu[2] != cpu[2]).sum())
+    both = gpu[2] & cpu[2]
+    diff = (gpu[0] - cpu[0]).abs()[both]
+    depth_pixels += int((diff > 0).sum())
+    depth_diff = max(depth_diff, float(diff.max()))
+  pixels = len(slots) * height * width
+  line = (f"card against CPU render of phase 29's map from {len(slots)} "
+          f"viewpoints: {flips} hit-mask flips of {pixels} pixels (gate "
+          f"{RENDER_FLIP_GATE * pixels:.0f}), depth differs at {depth_pixels} "
+          f"pixels where both hit, by at most {depth_diff!r} m (gate "
+          f"{RENDER_DEPTH_GATE_M} m)")
+  if flips > RENDER_FLIP_GATE * pixels or depth_diff > RENDER_DEPTH_GATE_M:
+    fail(line)
+  print(line)
+
+  g = torch.Generator(device=device).manual_seed(29)
+  n = SEEDED_SURFELS
+  pos = torch.stack([torch.rand(n, generator=g, device=device) * 3.0 - 1.5,
+                     torch.rand(n, generator=g, device=device) * 2.4 - 1.2,
+                     torch.rand(n, generator=g, device=device) * 3.7 + 0.3],
+                    dim=-1)
+  col = torch.rand((n, 3), generator=g, device=device)
+  valid = torch.ones(n, dtype=torch.bool, device=device)
+  T = torch.eye(4, device=device)
+  intr = torch.tensor([240.0, 240.0, 319.5, 239.5], device=device)
+  splats = lambda: render.render_surfel_splats(pos, col, valid, T, intr, 480,
+                                               640)
+  hit = splats()[2]
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  cost = render_cost(splats)
+  peak = torch.cuda.max_memory_allocated()
+  chunks = -(-n // render._RENDER_CHUNK)
+  print(f"seeded cloud of {n} surfels ({chunks} chunks) at 640x480: "
+        f"{cost['ms']!r} ms per viewpoint (CUDA events), {cost['launches']} "
+        f"kernel launches, {float(hit.float().mean())!r} of the pixels hit; "
+        f"peak device memory {peak} bytes, {peak - base} above the inputs")
+  return {"flips": flips, "depth_diff": depth_diff, "cloud_ms": cost["ms"],
+          "cloud_launches": cost["launches"], "cloud_peak": peak}
+
+
+def check_inspector(workdir: str, saved: dict) -> None:
+  """Phase 31: the snapshot inspector on phase 11's saved state."""
+  from badslam_tpu_torch import snapshot_inspector
+  from badslam_tpu_torch.io import ply
+  from badslam_tpu_torch.io.dataset import read_tum_trajectory
+  label = "snapshot inspector"
+  out_dir = os.path.join(workdir, "inspected")
+  cloud = os.path.join(workdir, "inspected.ply")
+  poses = os.path.join(workdir, "inspected_poses.txt")
+  out = io.StringIO()
+  t0 = time.perf_counter()
+  with contextlib.redirect_stdout(out):
+    rc = snapshot_inspector.main([
+        saved["paths"]["state.npz"], "--render", out_dir,
+        "--export_point_cloud", cloud, "--export_poses", poses])
+  seconds = time.perf_counter() - t0
+  print(out.getvalue().rstrip())
+  if rc != 0:
+    fail(f"{label}: returned {rc}")
+  pos, _, _ = ply.load_point_cloud_ply(cloud)
+  _, inspected = read_tum_trajectory(poses)
+  _, exported = read_tum_trajectory(saved["paths"]["poses.txt"])
+  names = os.listdir(out_dir)
+  if (len(pos) != saved["surfels"] or inspected.shape != (FRAMES, 4, 4)
+      or not np.array_equal(inspected, exported)
+      or len(names) != 2 * saved["keyframes"]):
+    fail(f"{label}: {len(pos)} surfels (saved {saved['surfels']}), poses "
+         f"{inspected.shape} equal to phase 11's: "
+         f"{np.array_equal(inspected, exported)}, {len(names)} previews for "
+         f"{saved['keyframes']} keyframes")
+  print(f"{label}: {len(pos)} surfels and {FRAMES} poses exported, equal to "
+        f"phase 11's; {len(names) // 2} keyframe previews; {seconds:.1f} s")
+
+
 def main() -> int:
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -2175,6 +2424,12 @@ def main() -> int:
     joint = run_self_calibration_path(workdir, data, use_pcg=True)
     restored = check_round_trip(workdir, data, self_calibration)
     loop_cli = run_loop_detection_cli(workdir, data, ba_path)
+    # Before any other torch.profiler session of this process: after one,
+    # the first kernel record of the next session can be lost (CUPTI).
+    previewed = run_previews_and_trace(workdir, data)
+    check_render_on_card(previewed, device)
+    del previewed["slam"]
+    check_inspector(workdir, self_calibration)
     defaults = run_defaults_path(workdir, data, ba_path)
     threaded = run_threaded_self_calibration(workdir, data)
     inputs = run_input_paths(workdir, data, INPUT_PATH_FRAMES)
@@ -2195,8 +2450,8 @@ def main() -> int:
               + prefetch["launches"] + config2["launches"]
               + blackout["launches"] + pl_cli["launches"]
               + pl_proc["launches"] + pl_calibration["launches"]
-              + pl_closure["launches"])
-  frames = (10 * FRAMES + 7 * INPUT_PATH_FRAMES
+              + pl_closure["launches"] + previewed["launches"])
+  frames = (10 * FRAMES + 8 * INPUT_PATH_FRAMES
             + (KEYFRAME_INTERVAL_BA + 2) + 11 + blackout["frames"]
             + pl_cli["frames"] + pl_proc["frames"]
             + pl_calibration["frames"] + pl_closure["frames"])

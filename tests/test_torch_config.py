@@ -20,7 +20,7 @@ import badslam_tpu_torch.config as port_config
 from badslam_tpu_torch import main as port_main
 from badslam_tpu_torch.io.dataset import Frame, RGBDVideo
 from badslam_tpu_torch.slam.system import BadSlam
-from badslam_tpu_torch.utils import synthetic
+from badslam_tpu_torch.utils import synthetic, tum_synth
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The odometry-only command line of chip_smoke.py.
@@ -157,8 +157,8 @@ def test_badslam_defaults_to_cuda_and_never_picks_the_cpu(monkeypatch):
 def test_cli_fails_without_a_card_and_runs_with_device_cpu(
     tmp_path, monkeypatch, capsys):
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-  data = synthetic.write_tum_dataset(
-      str(tmp_path / "tum"), synthetic.straight_trajectory(3), width=64,
+  data = tum_synth.write_tum_dataset(
+      str(tmp_path / "tum"), tum_synth.straight_trajectory(3), width=64,
       height=48)
   argv = [data, "--keyframe_interval", "5", "--num_scales", "2",
           "--max_depth", "5.0", "--max_num_ba_iterations_per_keyframe", "0",
@@ -178,8 +178,8 @@ def test_module_entry_point_exits_nonzero_without_a_card(tmp_path):
   process that sees no CUDA device."""
   if torch.cuda.is_available():
     pytest.skip("needs a machine without a CUDA device")
-  data = synthetic.write_tum_dataset(
-      str(tmp_path / "tum"), synthetic.straight_trajectory(2), width=64,
+  data = tum_synth.write_tum_dataset(
+      str(tmp_path / "tum"), tum_synth.straight_trajectory(2), width=64,
       height=48)
   env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
   proc = subprocess.run(

@@ -33,7 +33,7 @@ from badslam_tpu_torch.io.dataset import read_tum_trajectory
 from badslam_tpu_torch.ops import depth_model, depth_proc
 from badslam_tpu_torch.slam import system as system_mod
 from badslam_tpu_torch.slam.system import BadSlam
-from badslam_tpu_torch.utils import synthetic
+from badslam_tpu_torch.utils import synthetic, tum_synth
 
 W, H = 160, 120
 
@@ -110,7 +110,7 @@ def _plane_dataset(out, n, step):
   traj = [se3.exp(torch.tensor(
       [step[0] * i, 0, 0, 0, step[1] * i, 0])).numpy() for i in range(n)]
   video = synthetic.make_synthetic_video(cam, traj, _plane_world())
-  return synthetic.write_tum_video(out, video, traj), cam
+  return tum_synth.write_tum_video(out, video, traj), cam
 
 
 SMALL_MAP = ["--num_scales", "3", "--max_depth", "5.0",
@@ -208,8 +208,8 @@ def test_cli_no_pose_estimation_matches_jax(tmp_path):
 def test_prefetcher_returns_the_direct_loads(tmp_path):
   """Frames read through the prefetcher, in order and out of order, hold
   the arrays that direct loads give; closing it stops its threads."""
-  data = synthetic.write_tum_dataset(
-      str(tmp_path / "data"), synthetic.straight_trajectory(9), width=W,
+  data = tum_synth.write_tum_dataset(
+      str(tmp_path / "data"), tum_synth.straight_trajectory(9), width=W,
       height=H)
   direct = port_dataset.load_tum_dataset(data)
   video = port_dataset.load_tum_dataset(data)

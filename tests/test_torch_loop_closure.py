@@ -43,7 +43,7 @@ from badslam_tpu_torch.io import dataset as port_dataset
 from badslam_tpu_torch.io import state as port_state
 from badslam_tpu_torch.loop.detector import LoopDetector
 from badslam_tpu_torch.slam.system import BadSlam
-from badslam_tpu_torch.utils import synthetic
+from badslam_tpu_torch.utils import synthetic, tum_synth
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -191,7 +191,7 @@ def cli_pair(tmp_path_factory):
   cam = synthetic.default_test_camera(W, H)
   video = synthetic.make_synthetic_video(
       cam, traj, synthetic.plane_world_normals(), texture_kind="checker")
-  data = synthetic.write_tum_video(str(out / "data"), video, traj)
+  data = tum_synth.write_tum_video(str(out / "data"), video, traj)
   runs = {}
   for name, extra in (("thread", []),
                       ("sequential", ["--sequential_loop_detection",

@@ -24,7 +24,7 @@ from badslam_tpu_torch.models import odometry
 from badslam_tpu_torch.models.calibration import DepthCalibration
 from badslam_tpu_torch.ops import depth_model, pyramid
 from badslam_tpu_torch.slam.system import BadSlam
-from badslam_tpu_torch.utils import synthetic
+from badslam_tpu_torch.utils import synthetic, tum_synth
 
 torch.set_num_threads(2)
 
@@ -46,7 +46,7 @@ def pair():
   constant-twist trajectory (frame 0 and 2), the reference's preprocess,
   and a random cfactor with a = 0.01."""
   cam = jsynthetic.default_test_camera(W, H)
-  traj = synthetic.straight_trajectory(3)
+  traj = tum_synth.straight_trajectory(3)
   rng = np.random.default_rng(21)
   hc, wc = jdepth_model.cfactor_shape(H, W, CELL)
   cfactor = rng.uniform(-2e-3, 2e-3, (hc, wc)).astype(np.float32)
@@ -167,7 +167,7 @@ def test_calibration_carries_over_from_the_reference_state(pair):
   for f in ("fx", "fy", "cx", "cy", "width", "height"):
     assert float(getattr(tcam, f)) == float(getattr(jcam, f))
 
-  traj = synthetic.straight_trajectory(3)
+  traj = tum_synth.straight_trajectory(3)
   raw_to_float = 1.0 / 5000.0
   frames = []
   raws = []

@@ -54,7 +54,7 @@ from badslam_tpu_torch.loop.detector import LoopDetector
 from badslam_tpu_torch.slam import direct_ba as direct_ba_mod
 from badslam_tpu_torch.slam import pipelined
 from badslam_tpu_torch.slam.system import BadSlam, BAThreadError
-from badslam_tpu_torch.utils import synthetic, transfer
+from badslam_tpu_torch.utils import synthetic, transfer, tum_synth
 
 W, H = 160, 120
 N_FRAMES = 12
@@ -728,8 +728,8 @@ CLI_FRAMES = 16
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
   out = str(tmp_path_factory.mktemp("tum160"))
-  return synthetic.write_tum_dataset(
-      out, synthetic.straight_trajectory(CLI_FRAMES), width=W, height=H)
+  return tum_synth.write_tum_dataset(
+      out, tum_synth.straight_trajectory(CLI_FRAMES), width=W, height=H)
 
 
 def _cli_outputs(tmp_path, name):
@@ -754,7 +754,7 @@ def test_cli_pipelined_matches_jax(tmp_path):
   traj = _trajectory(N_FRAMES)
   video = synthetic.make_synthetic_video(
       synthetic.default_test_camera(W, H), traj, _world())
-  data = synthetic.write_tum_video(str(tmp_path / "data"), video, traj)
+  data = tum_synth.write_tum_video(str(tmp_path / "data"), video, traj)
   out = {}
   for name, main, extra in (
       ("port", port_main.main, ["--device", "cpu"]),

@@ -29,7 +29,7 @@ from badslam_tpu_torch import main as port_main
 from badslam_tpu_torch.geometry import se3
 from badslam_tpu_torch.io import ply
 from badslam_tpu_torch.io.dataset import read_tum_trajectory
-from badslam_tpu_torch.utils import synthetic
+from badslam_tpu_torch.utils import synthetic, tum_synth
 
 torch.set_num_threads(2)
 
@@ -47,8 +47,8 @@ def dataset(tmp_path_factory):
   """A 160x120 TUM dataset of the heightmap world along the constant-twist
   trajectory, written by the port's writer."""
   out = str(tmp_path_factory.mktemp("tum160"))
-  return synthetic.write_tum_dataset(
-      out, synthetic.straight_trajectory(FRAMES), width=160, height=120)
+  return tum_synth.write_tum_dataset(
+      out, tum_synth.straight_trajectory(FRAMES), width=160, height=120)
 
 
 SEQUENTIAL_BA = ["--keyframe_interval", "4",
@@ -275,10 +275,8 @@ def test_cli_ba_options_run(dataset, tmp_path, flags, map_gate):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--render_preview", "x"],
     ["--mesh_devices", "2"],
     ["--prewarm"],
-    ["--profile_dir", "x"],
 ])
 def test_unported_flags_are_refused(dataset, flags):
   base = ["--max_num_ba_iterations_per_keyframe", "0", "--no_loop_detection",

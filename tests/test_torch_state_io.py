@@ -34,7 +34,7 @@ from badslam_tpu_torch.io import dataset as port_dataset
 from badslam_tpu_torch.io import state as state_io
 from badslam_tpu_torch.io.dataset import read_tum_trajectory
 from badslam_tpu_torch.slam.system import BadSlam
-from badslam_tpu_torch.utils import synthetic
+from badslam_tpu_torch.utils import tum_synth
 
 torch.set_num_threads(2)
 
@@ -51,8 +51,8 @@ SELF_CALIBRATION = [
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
   out = str(tmp_path_factory.mktemp("tum160"))
-  return synthetic.write_tum_dataset(
-      out, synthetic.straight_trajectory(FRAMES), width=160, height=120)
+  return tum_synth.write_tum_dataset(
+      out, tum_synth.straight_trajectory(FRAMES), width=160, height=120)
 
 
 @pytest.fixture(scope="module")

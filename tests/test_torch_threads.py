@@ -36,7 +36,7 @@ from badslam_tpu_torch.models import odometry as odometry_mod
 from badslam_tpu_torch.slam import direct_ba as direct_ba_mod
 from badslam_tpu_torch.slam import system as system_mod
 from badslam_tpu_torch.slam.system import BadSlam, BAThreadError
-from badslam_tpu_torch.utils import synthetic
+from badslam_tpu_torch.utils import synthetic, tum_synth
 
 W, H = 160, 120
 STEP = np.asarray([0.002, 0.0008, -0.0004, 0.0004, -0.0002, 0.0003],
@@ -369,8 +369,8 @@ def test_ba_thread_intrinsics_step_between_two_readers_of_a_frame(
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
   out = str(tmp_path_factory.mktemp("tum160"))
-  return synthetic.write_tum_dataset(
-      out, synthetic.straight_trajectory(16), width=W, height=H)
+  return tum_synth.write_tum_dataset(
+      out, tum_synth.straight_trajectory(16), width=W, height=H)
 
 
 def test_cli_fails_when_the_ba_thread_fails(dataset, monkeypatch):
