@@ -183,9 +183,12 @@ def load_state(path: str, slam) -> None:
   ba.kf = ba.kf._replace(covis=torch.from_numpy(covis).to(ba.device),
                          activation=torch.from_numpy(act).to(ba.device))
 
-  # Surfels: the live ones, packed from slot 0.
+  # Surfels: the live ones, packed from slot 0. Under a mesh the store's
+  # setter shards them over it (JAX :242-248); a snapshot holds the
+  # single-device slot order either way, so either package loads it, on a
+  # mesh or not.
   n = int(data["surfel_pos"].shape[0])
-  cap = ba.surfels.capacity
+  cap = ba.surfel_capacity
   while cap < n:
     cap *= 2
 

@@ -626,6 +626,10 @@ class LoopDetector:
     for idx, (a_s, b_s) in enumerate(zip(slots[:-1], slots[1:])):
       ei[idx], ej[idx], w[idx] = a_s, b_s, 1.0
 
+    # The closure's small inputs and the accumulated loop edges live on the
+    # back-end's device, the mesh's first device under a mesh, where JAX
+    # (:510-539) replicates them over the mesh: the closure reads keyframes
+    # and poses only, which every shard replicates.
     dev = ba.device
     if self._device_loop_edges is None:
       self._device_loop_edges = device_closure.empty_loop_edges(dev)

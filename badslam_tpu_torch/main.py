@@ -250,13 +250,32 @@ def config_from_args(args) -> BadSlamConfig:
 def _refuse_unported_flags(args) -> None:
   """CLI-only flags outside the port (the configuration's own fields are
   checked by BadSlam)."""
-  from badslam_tpu_torch.slam.direct_ba import unported
-  if args.mesh_devices > 1:
-    raise SystemExit(unported("--mesh_devices", 'item 11 "Distribution"'))
   if args.prewarm or args.prewarm_keyframes > 0:
     raise SystemExit(
         "--prewarm: the port has no compile step to move out of the frame "
         "loop (ROADMAP \"Code the port leaves out\")")
+
+
+def build_mesh(n_devices: int, device: str):
+  """The mesh of ``--mesh_devices`` (JAX :221-249): none for ``n <= 1``;
+  ``n`` virtual shards of the CPU with ``--device cpu`` (JAX forces the
+  CPU's device count); the first ``n`` cards on CUDA, refused when fewer
+  are visible. A virtual mesh over one card is a library call
+  (``parallel.spmd.Mesh([cuda:0] * n, ...)``), not a CLI option."""
+  if n_devices <= 1:
+    return None
+  import torch
+  from badslam_tpu_torch.parallel import sharded_ba, spmd
+  if device == "cpu":
+    devices = [torch.device("cpu")] * n_devices
+  else:
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible < n_devices:
+      raise SystemExit(
+          f"--mesh_devices {n_devices}: only {visible} CUDA device(s) "
+          f"visible. For a virtual mesh run with --device cpu")
+    devices = [torch.device("cuda", i) for i in range(n_devices)]
+  return spmd.Mesh(devices, (sharded_ba.SURFEL_AXIS,))
 
 
 def run(args) -> int:
@@ -271,8 +290,12 @@ def run(args) -> int:
   video = dataset_io.load_tum_dataset(
       args.dataset, args.trajectory,
       raw_to_float_depth=config.raw_to_float_depth)
+  mesh = build_mesh(args.mesh_devices, args.device)
+  if mesh is not None and not args.quiet:
+    log.info(f"Distributed back-end over {args.mesh_devices} devices "
+             f"({mesh.first_device.type})")
   try:
-    slam = BadSlam(config, video, device=args.device)
+    slam = BadSlam(config, video, device=args.device, mesh=mesh)
   except (NotImplementedError, NoCudaDeviceError) as e:
     # Outside the slice, or --device cuda without a CUDA device.
     raise SystemExit(str(e)) from e
@@ -419,7 +442,7 @@ def _run_and_export(args, config, video, slam) -> int:
           f"{slam.direct_ba.keyframe_count} keyframes, "
           f"{slam.direct_ba.surfel_count} surfels")
     print(f"Surfel store: watermark {slam.direct_ba.surfel_watermark} of "
-          f"capacity {slam.direct_ba.surfels.capacity}; keyframe store: "
+          f"capacity {slam.direct_ba.surfel_capacity}; keyframe store: "
           f"capacity {slam.direct_ba.kf.capacity}")
     if slam.loop_detector is not None:
       print(f"Loops closed: {slam.loop_detector.num_loops_closed}, "

@@ -43,6 +43,7 @@ from badslam_tpu_torch.models.keyframes import KeyframeStore
 from badslam_tpu_torch.models.surfels import SurfelStore
 from badslam_tpu_torch.ops.interp import gather_image
 from badslam_tpu_torch.ops.segment import plan_segments
+from badslam_tpu_torch.parallel import spmd
 
 A_PRIOR_WEIGHT = 10.0  # kAPriorWeight (kernel_opt_intrinsics.cc:146)
 A_ROWS = 5             # fx_inv, fy_inv, cx_inv, cy_inv, a
@@ -122,11 +123,13 @@ def _accumulate(
     optimize_color: bool,
     slots: Optional[Sequence[int]] = None,
     transfer_free: bool = False,
+    axis: Optional[str] = None,
 ):
   """The depth Schur blocks (A, b1, B, D, b2, obs) and the color H and b,
   summed over the valid keyframes in slot order. ``slots`` are their indices
   as host ints, for a caller that has them; otherwise the mask is read back
-  once."""
+  once. ``axis``: the mesh axis the surfels are sharded over; each shard's
+  partial sums are then summed over it (``psum``)."""
   if slots is None:
     slots = torch.nonzero(kf.valid).flatten().tolist()
   dev = surfels.device
@@ -194,7 +197,8 @@ def _accumulate(
         cH = cH + Hd
         cb = cb + bd
 
-  return A, b1, B, D, b2, obs, cH, cb
+  sums = (A, b1, B, D, b2, obs, cH, cb)
+  return sums if axis is None else spmd.psum(sums, axis)
 
 
 def inverse_parameter_update(depth_intr: torch.Tensor, x: torch.Tensor,
@@ -225,12 +229,13 @@ def optimize_intrinsics(
     use_descriptor_residuals: bool = True,
     slots: Optional[Sequence[int]] = None,
     transfer_free: bool = False,
+    axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
   """One self-calibration step (OptimizeIntrinsicsCUDA,
   kernel_opt_intrinsics.cc:39-281). Returns new (depth_intr, color_intr, a,
   cfactor); an unknown that is not optimized comes back as the tensor that
   went in. ``transfer_free``: sums by cell without a host read
-  (``ops/segment.py``)."""
+  (``ops/segment.py``). ``axis`` as in ``_accumulate``."""
   optimize_depth = optimize_depth and use_depth_residuals
   optimize_color = optimize_color and use_descriptor_residuals
   depth_intr, a, cfactor = dp.depth_intr, dp.a, dp.cfactor
@@ -241,7 +246,7 @@ def optimize_intrinsics(
                             color_intr[2], color_intr[3])
   A, b1, B, D, b2, obs, cH, cb = _accumulate(
       surfels, kf, dp.camera(), color_cam, dp, optimize_depth,
-      optimize_color, slots, transfer_free)
+      optimize_color, slots, transfer_free, axis)
 
   new_depth_intr, new_a, new_cfactor = depth_intr, a, cfactor
   if optimize_depth:

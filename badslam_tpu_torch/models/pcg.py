@@ -28,8 +28,14 @@ them once per keyframe (``KeyframeTerms``) and every product of its up to
 keyframe; where that would not fit into half of the free device memory they
 are recomputed in every pass instead, which gives the same bits.
 
-The sharded variants of the reference (``axis_name``, ``kf_axis``) belong
-to the device mesh, which is not ported.
+Over a device mesh (``parallel/sharded_ba.py``, ``parallel/spmd.py``)
+``axis_name`` names the mesh axis the surfel unknowns are sharded over and
+``kf_axis`` the one the keyframes and their pose unknowns are sharded over.
+The pose and intrinsics rows that a shard accumulates from its surfels are
+summed over ``axis_name``, the surfel and intrinsics rows it accumulates from
+its keyframes over ``kf_axis`` (``_psum_replicated``), and the dot products
+sum their sharded parts; the surfel rows never leave their shard. With
+neither axis every result is what it is without a mesh.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from badslam_tpu_torch.models.intrinsics_opt import (
 from badslam_tpu_torch.models.keyframes import COVISIBLE_ACTIVE, KeyframeStore
 from badslam_tpu_torch.models.surfels import SurfelStore
 from badslam_tpu_torch.ops.segment import SegmentPlan, plan_segments
+from badslam_tpu_torch.parallel import spmd
 from badslam_tpu_torch.utils.transfer import DonePoll
 
 DIAG_EPSILON = 1e-8     # kDiagEpsilon (kernel_pcg.cu:44)
@@ -81,7 +88,23 @@ class PCGVector(NamedTuple):
   def mul(self, other):
     return PCGVector(*(a * b for a, b in zip(self, other)))
 
-  def dot(self, other) -> torch.Tensor:
+  def dot(self, other, axis_name: Optional[str] = None,
+          kf_axis: Optional[str] = None) -> torch.Tensor:
+    if axis_name is not None or kf_axis is not None:
+      # The surfel blocks are sharded along the surfel axis and, once
+      # psum'd over the kf axis, replicated along it; the pose blocks are
+      # sharded along the kf axis and replicated along the surfel axis; the
+      # intrinsics blocks are replicated everywhere.
+      d = torch.sum(self.spos * other.spos) + torch.sum(
+          self.sdesc * other.sdesc)
+      if axis_name is not None:
+        d = spmd.psum(d, axis_name)
+      dp = torch.sum(self.poses * other.poses)
+      if kf_axis is not None:
+        dp = spmd.psum(dp, kf_axis)
+      return (d + dp + torch.sum(self.dintr * other.dintr)
+              + torch.sum(self.cfac * other.cfac)
+              + torch.sum(self.cintr * other.cintr))
     return (torch.sum(self.spos * other.spos)
             + torch.sum(self.sdesc * other.sdesc)
             + torch.sum(self.poses * other.poses)
@@ -269,9 +292,32 @@ class KeyframeTerms:
       yield k, terms
 
 
-def _gauge_mask(k: int, gauge_index, device) -> torch.Tensor:
-  """(k, 1) mask of the pose row that is held fixed."""
-  return (torch.arange(k, device=device) == gauge_index)[:, None]
+def _gauge_mask(k: int, gauge_index, device,
+                kf_axis: Optional[str] = None) -> torch.Tensor:
+  """(k, 1) mask of the pose row that is held fixed. Under kf sharding the
+  local rows map to global ones by the shard's offset, and ``gauge_index``
+  is global."""
+  rows = torch.arange(k, device=device)
+  if kf_axis is not None:
+    rows = rows + spmd.axis_index(kf_axis) * k
+  return (rows == gauge_index)[:, None]
+
+
+def _psum_replicated(vecs: Tuple[PCGVector, ...], axis_name: Optional[str],
+                     kf_axis: Optional[str]) -> Tuple[PCGVector, ...]:
+  """The cross-shard sums of accumulated r/M/g vectors: the pose rows come
+  from the local surfel shard only (summed over the surfel axis), the surfel
+  rows from the local keyframe shard only (summed over the kf axis), the
+  intrinsics rows from both. One collective per axis for all ``vecs``."""
+  vecs = [v._asdict() for v in vecs]
+  for axis, names in ((axis_name, ("poses", "dintr", "cfac", "cintr")),
+                      (kf_axis, ("spos", "sdesc", "dintr", "cfac", "cintr"))):
+    if axis is None:
+      continue
+    summed = spmd.psum([[v[n] for n in names] for v in vecs], axis)
+    for v, parts in zip(vecs, summed):
+      v.update(zip(names, parts))
+  return tuple(PCGVector(**v) for v in vecs)
 
 
 def _terms_for(terms, surfels, kf, depth_cam, color_cam, dp, use_depth,
@@ -287,10 +333,13 @@ def pcg_init(surfels, kf, depth_cam, color_cam, dp, gauge_index,
              opt_dintr: bool = False, opt_cintr: bool = False,
              slots: Optional[Sequence[int]] = None,
              terms: Optional[KeyframeTerms] = None,
+             axis_name: Optional[str] = None,
+             kf_axis: Optional[str] = None,
              ) -> Tuple[PCGVector, PCGVector]:
   """r = -J^T W F and the Jacobi preconditioner M = diag(J^T W J) + eps
   (PCGInitCUDAKernel, kernel_pcg.cu:180+), the a-prior rows included
-  (kernel_pcg.cu:587-591)."""
+  (kernel_pcg.cu:587-591). ``axis_name``, ``kf_axis``: the mesh axes (see
+  the module's docstring)."""
   k, n = kf.capacity, surfels.capacity
   c = dp.cfactor.numel()
   dev = surfels.device
@@ -342,8 +391,10 @@ def pcg_init(surfels, kf, depth_cam, color_cam, dp, gauge_index,
                      + (t.J1c ** 2 * t.w1[:, None]).sum(dim=0)
                      + (t.J2c ** 2 * t.w2[:, None]).sum(dim=0))
 
+  if axis_name is not None or kf_axis is not None:
+    r, M = _psum_replicated((r, M), axis_name, kf_axis)
   # Gauge fixing: zero the fixed keyframe's rows; unit preconditioner there.
-  gauge_mask = _gauge_mask(k, gauge_index, dev)
+  gauge_mask = _gauge_mask(k, gauge_index, dev, kf_axis)
   r = r._replace(poses=torch.where(gauge_mask, 0.0, r.poses))
   M = M._replace(
       poses=torch.where(gauge_mask, 1.0, M.poses + DIAG_EPSILON),
@@ -374,16 +425,19 @@ def apply_hessian(p: PCGVector, surfels, kf, depth_cam, color_cam, dp,
                   gauge_index, use_depth=True, use_desc=True,
                   opt_dintr: bool = False, opt_cintr: bool = False,
                   slots: Optional[Sequence[int]] = None,
-                  terms: Optional[KeyframeTerms] = None) -> PCGVector:
+                  terms: Optional[KeyframeTerms] = None,
+                  axis_name: Optional[str] = None,
+                  kf_axis: Optional[str] = None) -> PCGVector:
   """g = (J^T W J + eps I) p, matrix-free (PCGStep1, kernel_pcg.cu:646+),
-  the a-prior term on the a row included (kernel_pcg.cu:1040)."""
+  the a-prior term on the a row included (kernel_pcg.cu:1040). The mesh
+  axes as in ``pcg_init``."""
   k, n = kf.capacity, surfels.capacity
   c = dp.cfactor.numel()
   dev = surfels.device
   terms = _terms_for(terms, surfels, kf, depth_cam, color_cam, dp, use_depth,
                      use_desc, opt_dintr, opt_cintr, slots)
   opt_dintr, opt_cintr = terms.opt_dintr, terms.opt_cintr
-  gauge_mask = _gauge_mask(k, gauge_index, dev)
+  gauge_mask = _gauge_mask(k, gauge_index, dev, kf_axis)
   p = p._replace(poses=torch.where(gauge_mask, 0.0, p.poses))
   if not opt_dintr:
     p = p._replace(dintr=torch.zeros_like(p.dintr),
@@ -424,6 +478,8 @@ def apply_hessian(p: PCGVector, surfels, kf, depth_cam, color_cam, dp,
     if opt_cintr:
       g = g._replace(cintr=g.cintr + t.J1c.T @ wJp1 + t.J2c.T @ wJp2)
 
+  if axis_name is not None or kf_axis is not None:
+    g, = _psum_replicated((g,), axis_name, kf_axis)
   g = g._replace(poses=torch.where(gauge_mask, p.poses, g.poses))
   g = g + p.scale(DIAG_EPSILON)
   if opt_dintr:
@@ -441,35 +497,41 @@ def pcg_solve(surfels: SurfelStore, kf: KeyframeStore,
               opt_dintr: bool = False, opt_cintr: bool = False,
               slots: Optional[Sequence[int]] = None,
               stats: Optional[dict] = None,
-              transfer_free: bool = False) -> PCGVector:
+              transfer_free: bool = False,
+              axis_name: Optional[str] = None,
+              kf_axis: Optional[str] = None) -> PCGVector:
   """The full PCG solve. Returns the GN update delta, which
   ``apply_pcg_delta`` adds. The loop ends on the host, so each inner
   iteration reads one flag from the device; with ``transfer_free`` the flag
   stays on the device and the delta holds once it is set
   (utils/transfer.py). ``stats``, if given, receives the inner iterations
   run (launched, with ``transfer_free``), the passes over the keyframes and
-  the keyframe terms computed."""
+  the keyframe terms computed. ``axis_name`` and ``kf_axis`` as in
+  ``pcg_init``: every value that steers the loop is then the same on every
+  shard."""
   terms = KeyframeTerms(surfels, kf, depth_cam, color_cam, dp, use_depth,
                         use_desc, opt_dintr, opt_cintr, slots, transfer_free)
   common = (surfels, kf, depth_cam, color_cam, dp, gauge_index, use_depth,
             use_desc)
-  r, M = pcg_init(*common, terms=terms)
+  axes = dict(axis_name=axis_name, kf_axis=kf_axis)
+  r, M = pcg_init(*common, terms=terms, **axes)
   M_inv = PCGVector(*(1.0 / m for m in M))
 
   delta = zeros_like_vec(kf.capacity, surfels.capacity, dp.cfactor.numel(),
                          surfels.device)
   g = M_inv.mul(r)
   pvec = g
-  alpha_n = r.dot(g)
+  alpha_n = r.dot(g, **axes)
   threshold = 1e-10 * alpha_n + 1e-30
   iterations = 0
   if transfer_free:
-    poll = DonePoll(surfels.device)
+    mesh_axes = tuple(a for a in (axis_name, kf_axis) if a is not None)
+    poll = DonePoll(surfels.device, mesh_axes or None)
     done = ~(alpha_n > threshold)
   while iterations < max_inner_iterations and (
       transfer_free or bool(alpha_n > threshold)):
-    h = apply_hessian(pvec, *common, terms=terms)
-    alpha_d = pvec.dot(h)
+    h = apply_hessian(pvec, *common, terms=terms, **axes)
+    alpha_d = pvec.dot(h, **axes)
     alpha = alpha_n / torch.clamp(alpha_d, min=1e-30)
     stepped = delta + pvec.scale(alpha)
     delta = (PCGVector(*(torch.where(done, a, b)
@@ -477,7 +539,7 @@ def pcg_solve(surfels: SurfelStore, kf: KeyframeStore,
              if transfer_free else stepped)
     r = r - h.scale(alpha)
     g = M_inv.mul(r)
-    beta_n = r.dot(g)
+    beta_n = r.dot(g, **axes)
     beta = beta_n / torch.clamp(alpha_n, min=1e-30)
     pvec = g + pvec.scale(beta)
     alpha_n = beta_n
@@ -497,18 +559,22 @@ def debug_verify_result(delta: PCGVector, surfels, kf, depth_cam, color_cam,
                         dp, gauge_index, use_depth=True, use_desc=True,
                         opt_dintr: bool = False, opt_cintr: bool = False,
                         slots: Optional[Sequence[int]] = None,
+                        axis_name: Optional[str] = None,
+                        kf_axis: Optional[str] = None,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
   """The kDebugVerifyResult self-check (direct_ba_pcg.cc:476-550,
   kernel_pcg.cu:1260-1276): recompute r0 and (J^T W J + eps I) delta and
   return the largest absolute residual of the normal equations, and
   ||r0||_inf for scale. An exact solve gives 0; a converged PCG gives a
-  value that is small against the scale."""
+  value that is small against the scale. Over a mesh both are maxima over
+  every shard."""
   terms = KeyframeTerms(surfels, kf, depth_cam, color_cam, dp, use_depth,
                         use_desc, opt_dintr, opt_cintr, slots)
   common = (surfels, kf, depth_cam, color_cam, dp, gauge_index, use_depth,
             use_desc)
-  r0, _ = pcg_init(*common, terms=terms)
-  diff = apply_hessian(delta, *common, terms=terms) - r0
+  axes = dict(axis_name=axis_name, kf_axis=kf_axis)
+  r0, _ = pcg_init(*common, terms=terms, **axes)
+  diff = apply_hessian(delta, *common, terms=terms, **axes) - r0
   blocks = ["spos", "sdesc", "poses"]
   scale_blocks = list(blocks)
   if terms.opt_dintr:
@@ -520,6 +586,9 @@ def debug_verify_result(delta: PCGVector, surfels, kf, depth_cam, color_cam,
   err = torch.stack([getattr(diff, b).abs().max() for b in blocks]).max()
   scale = torch.stack(
       [getattr(r0, b).abs().max() for b in scale_blocks]).max()
+  for axis in (axis_name, kf_axis):
+    if axis is not None:
+      err, scale = spmd.pmax((err, scale), axis)
   return err, scale
 
 

@@ -8,6 +8,11 @@ iterations; each accumulates a 6x6 H and a 6-vector b over all surfels
 
 The H/b reduction and the 6x6 solve run on the device; each GN iteration
 reads one convergence flag back to the host to end the loop.
+
+With the surfel store sharded over a mesh (``parallel/spmd.py``), ``axis``
+names the mesh axis of the surfel shards: each shard accumulates its partial
+H/b, the partials are summed over the axis (``psum``) and every shard makes
+the same solve and the same step.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from badslam_tpu_torch.geometry.camera import (DepthToColorTransform,
 from badslam_tpu_torch.models import association, cost
 from badslam_tpu_torch.models.calibration import DepthCalibration
 from badslam_tpu_torch.models.surfels import SurfelStore
+from badslam_tpu_torch.parallel import spmd
 from badslam_tpu_torch.utils.transfer import DonePoll
 
 _TRANSLATION_CONVERGENCE_THRESHOLD = 1e-6
@@ -140,21 +146,25 @@ def estimate_frame_pose(
     use_descriptor_residuals: bool = True,
     max_iterations: int = 30,
     transfer_free: bool = False,
+    axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, bool]:
   """Returns (global_T_frame_estimate, converged). The loop ends on the
   host, so each iteration reads the convergence flag from the device. With
   ``transfer_free`` the flag stays on the device and the pose holds once it
   is set (utils/transfer.py); ``converged`` is then not known and returned
-  as False."""
+  as False. ``axis``: the mesh axis the surfels are sharded over (see the
+  module's docstring)."""
   T = global_T_frame_init
   converged = False
   if transfer_free:
-    poll = DonePoll(T.device)
+    poll = DonePoll(T.device, axis)
     done = torch.zeros((), dtype=torch.bool, device=T.device)
   for _ in range(max_iterations):
     H, b, _, _ = accumulate_pose_h_b(
         T, surfels, kf_depth, kf_normals, kf_intensity, depth_cam,
         color_cam, dp, use_depth_residuals, use_descriptor_residuals)
+    if axis is not None:
+      H, b = spmd.psum((H, b), axis)
     x = solve_6x6(H, b)
     # A singular H (no associations) must not poison the pose.
     x = torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
@@ -186,6 +196,7 @@ def estimate_frame_poses_batched(
     max_iterations: int = 30,
     slots: Optional[Sequence[int]] = None,
     transfer_free: bool = False,
+    axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Frame-to-model pose GN of every keyframe in ``optimize_mask``.
 
@@ -197,7 +208,7 @@ def estimate_frame_poses_batched(
 
   ``slots`` are the indices of ``optimize_mask`` as host ints, for a caller
   that has them; otherwise the mask is read back once. ``transfer_free``
-  as in ``estimate_frame_pose``.
+  and ``axis`` as in ``estimate_frame_pose``.
 
   Returns (global_T_frame (K, 4, 4), moved (K,) bool). ``moved`` is the
   reference's frame_moved = !IsScale1PoseEstimationConverged(diff.log()) on
@@ -209,7 +220,7 @@ def estimate_frame_poses_batched(
     T[k], _ = estimate_frame_pose(
         global_T_frame_init[k], surfels, kf_depth[k], kf_normals[k],
         kf_intensity[k], depth_cam, color_cam, dp, use_depth_residuals,
-        use_descriptor_residuals, max_iterations, transfer_free)
+        use_descriptor_residuals, max_iterations, transfer_free, axis)
   diff = se3.inverse(global_T_frame_init) @ T
   moved = optimize_mask & ~is_scale1_converged(se3.log(diff))
   return T, moved

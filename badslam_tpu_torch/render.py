@@ -176,10 +176,11 @@ def render_map(ba, frame_T_global, mode: str = "color",
   else:
     width, height = ba.color_size
     intr = ba.color_intr
-  colors = surfel_display_colors(ba.surfels, mode)
+  surfels = ba.surfels  # under a mesh, one gather of the sharded store
+  colors = surfel_display_colors(surfels, mode)
   T = torch.as_tensor(frame_T_global, dtype=torch.float32).to(dev)
   depth, color, hit = render_surfel_splats(
-      ba.surfels.pos, colors, ba.surfels.valid, T, intr, height, width,
+      surfels.pos, colors, surfels.valid, T, intr, height, width,
       splat_half_extent_in_pixels, max_depth)
   return depth.cpu().numpy(), color_to_u8(color), hit.cpu().numpy()
 

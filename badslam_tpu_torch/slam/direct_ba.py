@@ -31,15 +31,35 @@ direct_ba.cc:566-653.
     copies its result into the same tensors, so every camera made of views
     of them, the front-end and the preprocess kernel's pointers follow.
 
-Not ported, and refused where a caller could reach it: the surfel store
-sharded over a device mesh (ROADMAP queue 1 item 11).
+Mesh mode (``mesh=``, JAX :350-436): the surfel store is sharded over the
+mesh's ``surfels`` axis (global slot ``s`` on shard ``s // (capacity /
+N)``); the keyframes and the calibration are replicated, one replica per
+distinct device (``parallel/spmd.replicate``; on a virtual mesh over one
+device the replica is the tensor itself). An added keyframe's slot is
+copied to the other devices' replicas of the image stacks
+(``spmd.rows_written``); the small per-keyframe vectors are new tensors
+after every write and are copied whole.
+
+  * Activation, the geometry step, deletion and the radius update, colour
+    assignment and the normal re-estimation run on each shard, in one thread
+    per mesh position (``parallel/spmd.shard_map``).
+  * The pose H/b of each GN iteration, the intrinsics sums, the PCG's pose
+    and intrinsics rows and its dot products are summed over the shards in
+    mesh order (``psum``); the surfel count sums the shards' counts.
+  * The ops that move surfels between slots (creation's append at the
+    watermark, merge, compaction, growth, ``export_point_cloud`` and
+    ``to_numpy``) read ``surfels``, which gathers the store onto the mesh's
+    first device, and write it back, which shards it again (GSPMD's
+    partitioner does this implicitly in JAX). Each gather and each sharding
+    is a ``Timing`` span, and ``mesh_gather_bytes`` counts the bytes the
+    gathers moved, so a later partition of these ops can be measured.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +76,8 @@ from badslam_tpu_torch.models.keyframes import (ACTIVE, COVISIBLE_ACTIVE,
                                                 INACTIVE, KeyframeStore)
 from badslam_tpu_torch.models.surfels import SurfelStore
 from badslam_tpu_torch.ops.depth_proc import compute_min_max_depth
+from badslam_tpu_torch.parallel import sharded_ba, spmd
+from badslam_tpu_torch.parallel.spmd import P
 from badslam_tpu_torch.utils import logging as log
 from badslam_tpu_torch.utils.timing import Timing
 from badslam_tpu_torch.utils.transfer import to_device
@@ -63,11 +85,6 @@ from badslam_tpu_torch.utils.transfer import to_device
 # kDebugVerifySurfelCount (direct_ba.cc:55): recount on the device and CHECK
 # the host mirrors after every BA scheme.
 DEBUG_VERIFY_COUNT = bool(os.environ.get("BADSLAM_DEBUG_VERIFY_COUNT"))
-
-
-def unported(what: str, item: str) -> str:
-  return (f"{what} is not ported to badslam_tpu_torch yet "
-          f"(ROADMAP queue 1, {item}); use badslam_tpu for it")
 
 
 def make_camera(intr: torch.Tensor, width: int, height: int) -> PinholeCamera:
@@ -87,6 +104,15 @@ def as_device_tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
 def camera_intrinsics(cam: PinholeCamera, device) -> torch.Tensor:
   return torch.tensor([float(cam.fx), float(cam.fy), float(cam.cx),
                        float(cam.cy)], dtype=torch.float32, device=device)
+
+
+class MapView(NamedTuple):
+  """The replicated state one shard reads, on its device."""
+  kf: KeyframeStore
+  calibration: DepthCalibration
+  color_intr: torch.Tensor
+  depth_cam: PinholeCamera
+  color_cam: PinholeCamera
 
 
 def determine_covisible_active(kf: KeyframeStore) -> KeyframeStore:
@@ -114,12 +140,26 @@ class DirectBA:
       surfel_capacity: Optional[int] = None,
       device=None,
       calibration: Optional[DepthCalibration] = None,
+      mesh: Optional[spmd.Mesh] = None,
   ):
     """``device`` is where every store is allocated (``cuda`` when none is
-    named). ``calibration`` is the depth calibration to read, shared with
-    the front-end; without one a new map's initial state is made."""
+    named; the mesh's first device under a ``mesh``). ``calibration`` is the
+    depth calibration to read, shared with the front-end; without one a new
+    map's initial state is made. ``mesh``: shard the surfel store over its
+    ``surfels`` axis (see the module's docstring)."""
     self.config = config
+    self.mesh = mesh
+    if mesh is not None:
+      if device is not None and torch.device(device) != mesh.first_device:
+        raise ValueError(f"device {device} is not the mesh's first device "
+                         f"{mesh.first_device}")
+      device = mesh.first_device
     self.device = torch.device("cuda" if device is None else device)
+    # The mesh axis of the surfel shards, for the cross-shard sums.
+    self._axis = None if mesh is None else sharded_ba.SURFEL_AXIS
+    # Gathers of the store onto the first device, and their bytes.
+    self.mesh_gathers = 0
+    self.mesh_gather_bytes = 0
     self.depth_size = (depth_cam.width, depth_cam.height)
     self.color_size = (color_cam.width, color_cam.height)
     if calibration is None:
@@ -133,6 +173,8 @@ class DirectBA:
     scap = surfel_capacity or config.initial_surfel_capacity
     self.kf = kf_mod.create(kcap, depth_cam.height, depth_cam.width,
                             self.device)
+    self._surfels: Optional[SurfelStore] = None
+    self._sharded: Optional[SurfelStore] = None
     self.surfels = surfels_mod.create(scap, self.device)
 
     # Host mirrors. Reading a device scalar waits for the device, so counts
@@ -168,14 +210,17 @@ class DirectBA:
   def from_numpy(cls, config: BadSlamConfig, depth_cam: PinholeCamera,
                  color_cam: PinholeCamera, surfels: Dict[str, np.ndarray],
                  kf: Dict[str, np.ndarray], calibration: DepthCalibration,
-                 host_state: Dict[str, object], device) -> "DirectBA":
+                 host_state: Dict[str, object], device,
+                 mesh: Optional[spmd.Mesh] = None) -> "DirectBA":
     """A back-end that continues from another one's state: the two stores
-    as host arrays named like their fields, the calibration, and the host
-    mirrors (``_kf_count_host``, ``_kf_valid_host``,
-    ``last_active_in_ba_iteration``, ``ba_iteration_count``,
-    ``last_ba_iteration_count``)."""
+    as host arrays named like their fields, in the single-device slot order,
+    the calibration, and the host mirrors (``_kf_count_host``,
+    ``_kf_valid_host``, ``last_active_in_ba_iteration``,
+    ``ba_iteration_count``, ``last_ba_iteration_count``); over ``mesh`` if
+    one is given."""
     ba = cls(config, depth_cam, color_cam, keyframe_capacity=1,
-             surfel_capacity=1, device=device, calibration=calibration)
+             surfel_capacity=1, device=device, calibration=calibration,
+             mesh=mesh)
     ba.surfels = surfels_mod.from_numpy(surfels, ba.device)
     ba.kf = kf_mod.from_numpy(kf, ba.device)
     ba._kf_count_host = int(host_state["_kf_count_host"])
@@ -200,6 +245,79 @@ class DirectBA:
     return (surfels_mod.to_numpy(self.surfels), kf_mod.to_numpy(self.kf),
             host_state)
 
+  # --- the surfel store, whole or sharded ---
+
+  @property
+  def surfels(self) -> SurfelStore:
+    """The surfel store. Under a mesh: gathered onto the mesh's first
+    device, in the single-device slot order (a copy)."""
+    if self.mesh is None:
+      return self._surfels
+    with Timing.time("Mesh surfel gather"):
+      nbytes = sum(x.nbytes for x in self._sharded
+                   if isinstance(x, spmd.Sharded))
+      self.mesh_gathers += 1
+      self.mesh_gather_bytes += nbytes
+      log.debug(f"mesh: gathered {nbytes} bytes of surfels")
+      return SurfelStore(*(spmd.gather(x) for x in self._sharded))
+
+  @surfels.setter
+  def surfels(self, store: SurfelStore):
+    if self.mesh is None:
+      self._surfels = store
+      return
+    with Timing.time("Mesh surfel sharding"):
+      n = self.mesh.shape[sharded_ba.SURFEL_AXIS]
+      if store.capacity % n:
+        store = surfels_mod.grow(store, -(-store.capacity // n) * n)
+      self._sharded = sharded_ba.shard_surfels(store, self.mesh)
+
+  def _store(self) -> SurfelStore:
+    """The store as it is held: whole, or of ``spmd.Sharded`` fields."""
+    return self._surfels if self.mesh is None else self._sharded
+
+  def _put(self, store: SurfelStore):
+    """Keep a store as ``_on_shards`` returns it."""
+    if self.mesh is None:
+      self._surfels = store
+    else:
+      self._sharded = store
+
+  def _view(self, device) -> MapView:
+    """The replicated state on ``device``."""
+    if device is None or device == self.device:
+      return MapView(self.kf, self.calibration, self.color_intr,
+                     self.depth_camera(), self.color_camera())
+    kf = KeyframeStore(*(spmd.replicate(x, device) for x in self.kf))
+    c = self.calibration
+    calib = DepthCalibration(
+        *(spmd.replicate(x, device)
+          for x in (c.depth_intr, c.a, c.cfactor, c.baseline_fx)),
+        c.cell_size, c.depth_size)
+    color_intr = spmd.replicate(self.color_intr, device)
+    w, h = self.color_size
+    return MapView(kf, calib, color_intr, calib.camera(),
+                   make_camera(color_intr, w, h))
+
+  def _on_shards(self, fn, out_specs, *args, in_specs=()):
+    """``fn(surfels, view, *args)`` on the store, or, under a mesh, on every
+    shard of it in its own thread with its device's ``MapView``;
+    ``out_specs`` and ``in_specs`` (of ``args``) as in
+    ``spmd.shard_map``."""
+    if self.mesh is None:
+      return fn(self._surfels, self._view(self.device), *args)
+
+    def body(surfels, *a):
+      return fn(surfels, self._view(spmd.current_device()), *a)
+    return spmd.shard_map(body, self.mesh,
+                          (sharded_ba.surfel_specs(),) + tuple(in_specs),
+                          out_specs)(self._sharded, *args)
+
+  def _local_surfels(self, fn, *args, in_specs=()):
+    """``_on_shards`` for an ``fn`` that returns the (local) store."""
+    self._put(self._on_shards(fn, sharded_ba.surfel_specs(), *args,
+                              in_specs=in_specs))
+
   # --- accessors ---
 
   @property
@@ -207,23 +325,33 @@ class DirectBA:
     return self._kf_count_host
 
   @property
+  def surfel_capacity(self) -> int:
+    return self._store().pos.shape[0]
+
+  @property
   def surfel_count(self) -> int:
     """Number of live surfels (valid mask), not the allocation watermark."""
+    valid = self._store().valid
     cached_obj, cached_val = self._surfel_count_cache
-    if cached_obj is self.surfels.valid:
+    if cached_obj is valid:
       return cached_val
-    val = int(torch.sum(self.surfels.valid))
-    self._surfel_count_cache = (self.surfels.valid, val)
+    if self.mesh is None:
+      val = int(torch.sum(valid))
+    else:
+      val = int(torch.stack([torch.sum(b).to(self.device)
+                             for b in valid.blocks()]).sum())
+    self._surfel_count_cache = (valid, val)
     return val
 
   @property
   def surfel_watermark(self) -> int:
     """Allocation watermark: the next append position (>= surfel_count)."""
+    count = self._store().count
     cached_obj, cached_val = self._surfel_watermark_cache
-    if cached_obj is self.surfels.count:
+    if cached_obj is count:
       return cached_val
-    val = int(self.surfels.count)
-    self._surfel_watermark_cache = (self.surfels.count, val)
+    val = int(count)
+    self._surfel_watermark_cache = (count, val)
     self._watermark_bound = val
     return val
 
@@ -276,19 +404,21 @@ class DirectBA:
     w, h = self.depth_size
     cell = self.cell_size
     headroom = (h // cell + 1) * (w // cell + 1)
-    if (self._watermark_bound + headroom > self.surfels.capacity
+    if (self._watermark_bound + headroom > self.surfel_capacity
         and not self.config.pipelined_frontend):
       # The pipelined front-end grows on the bound alone: it ratchets by one
       # pass's headroom whatever was appended, so the store over-grows, up
       # to max_surfel_count, rather than reading the watermark.
       _ = self.surfel_watermark  # re-syncs _watermark_bound
-    while (self._watermark_bound + headroom > self.surfels.capacity and
-           self.surfels.capacity < self.config.max_surfel_count):
+    # Under a mesh the setter rounds the new capacity up to a multiple of
+    # the shard count, past max_surfel_count if need be.
+    while (self._watermark_bound + headroom > self.surfel_capacity and
+           self.surfel_capacity < self.config.max_surfel_count):
       self.surfels = surfels_mod.grow(
           self.surfels,
-          min(self.surfels.capacity * 2, self.config.max_surfel_count))
+          min(self.surfel_capacity * 2, self.config.max_surfel_count))
     self._watermark_bound = min(self._watermark_bound + headroom,
-                                self.surfels.capacity)
+                                self.surfel_capacity)
 
   def get_min_observation_count(self) -> int:
     """Bootstrapping schedule (direct_ba.h:219-226)."""
@@ -321,6 +451,11 @@ class DirectBA:
         as_device_tensor(rgb, torch.uint8, dev),
         as_device_tensor(global_T_frame, f32, dev),
         frame_index, min_d, max_d, index=idx)
+    if self.mesh is not None:
+      # The other devices' replicas take the new slot, not the stacks.
+      for stack in (kf.depth, kf.normals, kf.radius_sq, kf.intensity,
+                    kf.rgb):
+        spmd.rows_written(stack, idx)
 
     # Frustum intersection of the new keyframe with every existing one.
     others = torch.arange(kf.capacity, device=dev)
@@ -377,13 +512,17 @@ class DirectBA:
     counts null keyframes as converged; 0 with ``transfer_free``, which
     reads nothing."""
     kf = self.kf
-    optimize = kf.valid & (kf.activation != INACTIVE)
-    T, moved = pose_opt.estimate_frame_poses_batched(
-        kf.global_T_frame, optimize, self.surfels, kf.depth, kf.normals,
-        kf.intensity, self.depth_camera(), self.color_camera(),
-        self.calibration, self.use_depth_residuals,
-        self.use_descriptor_residuals, max_iterations, slots=slots,
-        transfer_free=transfer_free)
+
+    def poses(surfels, v):
+      optimize = v.kf.valid & (v.kf.activation != INACTIVE)
+      T, moved = pose_opt.estimate_frame_poses_batched(
+          v.kf.global_T_frame, optimize, surfels, v.kf.depth, v.kf.normals,
+          v.kf.intensity, v.depth_cam, v.color_cam, v.calibration,
+          self.use_depth_residuals, self.use_descriptor_residuals,
+          max_iterations, slots=slots, transfer_free=transfer_free,
+          axis=self._axis)
+      return T, moved, optimize
+    T, moved, optimize = self._on_shards(poses, (P(), P(), P()))
     activation = torch.where(
         optimize, torch.where(moved, ACTIVE, INACTIVE).to(torch.int32),
         kf.activation)
@@ -414,35 +553,47 @@ class DirectBA:
     BundleAdjustmentPCG, direct_ba_pcg.cc:339-471), followed by the PCG
     path's separate normal re-estimation (kernel_opt_geometry.cu:527+).
     Returns the largest pose-update entry of a valid keyframe (0-d)."""
-    calib = self.calibration
-    depth_cam, color_cam = self.depth_camera(), self.color_camera()
-    stats = {}
-    delta = pcg_mod.pcg_solve(
-        self.surfels, self.kf, depth_cam, color_cam, calib, gauge,
-        self.config.pcg_max_inner_iterations, self.use_depth_residuals,
-        self.use_descriptor_residuals, opt_dintr, opt_cintr, slots=slots,
-        stats=stats, transfer_free=transfer_free)
-    self.pcg_inner_iterations.append(stats["iterations"])
-    self.surfels, self.kf = pcg_mod.apply_pcg_delta(self.surfels, self.kf,
-                                                    delta)
-    new_calibration = pcg_mod.apply_pcg_delta_intrinsics(
-        calib.depth_intr, self.color_intr, calib.a, calib.cfactor, delta,
-        opt_dintr, opt_cintr)
-    # The normals are re-estimated under the calibration the step was
-    # linearized at, as in the reference; only then is the new one written.
-    self.surfels = geometry_opt.reestimate_normals(
-        self.surfels, self.kf, depth_cam, calib, slots=slots)
+    def step(surfels, v):
+      calib = v.calibration
+      stats = {}
+      delta = pcg_mod.pcg_solve(
+          surfels, v.kf, v.depth_cam, v.color_cam, calib, gauge,
+          self.config.pcg_max_inner_iterations, self.use_depth_residuals,
+          self.use_descriptor_residuals, opt_dintr, opt_cintr, slots=slots,
+          stats=stats, transfer_free=transfer_free, axis_name=self._axis)
+      surfels, kf = pcg_mod.apply_pcg_delta(surfels, v.kf, delta)
+      new_calibration = pcg_mod.apply_pcg_delta_intrinsics(
+          calib.depth_intr, v.color_intr, calib.a, calib.cfactor, delta,
+          opt_dintr, opt_cintr)
+      # The normals are re-estimated under the calibration the step was
+      # linearized at, as in the reference; only then is the new one
+      # written.
+      surfels = geometry_opt.reestimate_normals(
+          surfels, kf, v.depth_cam, calib, slots=slots)
+      pose_update = torch.where(kf.valid[:, None], delta.poses.abs(),
+                                0.0).max()
+      return (surfels, kf.global_T_frame, new_calibration, pose_update,
+              stats["iterations"])
+    surfels, T, new_calibration, pose_update, iterations = self._on_shards(
+        step, (sharded_ba.surfel_specs(), P(), P(), P(), P()))
+    self.pcg_inner_iterations.append(iterations)
+    self._put(surfels)
+    self.kf = self.kf._replace(global_T_frame=T)
     self._write_calibration(*new_calibration)
-    return torch.where(self.kf.valid[:, None], delta.poses.abs(), 0.0).max()
+    return pose_update
 
   def _optimize_intrinsics(self, optimize_depth: bool, optimize_color: bool,
                            transfer_free: bool = False):
     """The alternated self-calibration step (models/intrinsics_opt.py)."""
-    self._write_calibration(*intrinsics_opt.optimize_intrinsics(
-        self.surfels, self.kf, self.calibration, self.color_intr,
-        self.color_size, optimize_depth, optimize_color,
-        self.use_depth_residuals, self.use_descriptor_residuals,
-        slots=self._valid_slots(), transfer_free=transfer_free))
+    slots = self._valid_slots()
+
+    def step(surfels, v):
+      return intrinsics_opt.optimize_intrinsics(
+          surfels, v.kf, v.calibration, v.color_intr, self.color_size,
+          optimize_depth, optimize_color, self.use_depth_residuals,
+          self.use_descriptor_residuals, slots=slots,
+          transfer_free=transfer_free, axis=self._axis)
+    self._write_calibration(*self._on_shards(step, P()))
 
   # --- the BA scheme: alternating, or joint by PCG ---
 
@@ -493,15 +644,13 @@ class DirectBA:
                        "activation evolves by reads otherwise)")
 
     # Surfel active states start inactive.
-    self.surfels = self.surfels._replace(
-        active=torch.zeros_like(self.surfels.active))
+    self._local_surfels(
+        lambda surfels, v: surfels._replace(
+            active=torch.zeros_like(surfels.active)))
 
     converged = False
     iterations_done = 0
     kcount = self.keyframe_count
-    # Views of the calibration's tensors: they follow an intrinsics step.
-    depth_cam = self.depth_camera()
-    color_cam = self.color_camera()
     use_pcg = self.config.use_pcg and optimize_poses and optimize_geometry
     # Under PCG the intrinsics unknowns fold into the joint vector
     # (direct_ba_pcg.cc:240-307) instead of the alternated Schur step.
@@ -548,7 +697,7 @@ class DirectBA:
       participating = np.flatnonzero(act_valid >= COVISIBLE_ACTIVE).tolist()
 
       # --- SURFEL CREATION for newly active keyframes ---
-      old_valid = self.surfels.valid
+      old_valid = self._store().valid
       keyframes_with_new_surfels: List[int] = []
       if optimize_geometry and do_surfel_updates:
         with Timing.time("BA surfel creation"):
@@ -564,17 +713,22 @@ class DirectBA:
       # --- SURFEL ACTIVATION ---
       with Timing.time("BA surfel activation"):
         # New surfels (valid now but not before) start active. The creation
-        # pass may have grown the store: pad the old mask.
-        if self.surfels.capacity != old_valid.shape[0]:
+        # pass may have grown the store: pad the old mask (under a mesh the
+        # shards' boundaries moved too, so it is padded whole).
+        if self.surfel_capacity != old_valid.shape[0]:
+          old_valid = spmd.gather(old_valid)
           old_valid = torch.cat([old_valid, old_valid.new_zeros(
-              self.surfels.capacity - old_valid.shape[0])])
-        new_surfels = self.surfels.valid & ~old_valid
+              self.surfel_capacity - old_valid.shape[0])])
         if fixed_active_set:
-          self.surfels = self.surfels._replace(active=self.surfels.valid)
+          self._local_surfels(
+              lambda surfels, v: surfels._replace(active=surfels.valid))
         else:
-          self.surfels = surfel_ops.update_surfel_activation(
-              self.surfels, self.kf, depth_cam, self.calibration,
-              new_surfels, slots=active_slots)
+          def activate(surfels, v, old):
+            return surfel_ops.update_surfel_activation(
+                surfels, v.kf, v.depth_cam, v.calibration,
+                surfels.valid & ~old, slots=active_slots)
+          self._local_surfels(activate, old_valid,
+                              in_specs=(P(sharded_ba.SURFEL_AXIS),))
 
       # --- GEOMETRY OPTIMIZATION (alternating) or JOINT PCG STEP ---
       pose_update = None
@@ -589,10 +743,11 @@ class DirectBA:
                                             pcg_cintr, transfer_free)
       elif optimize_geometry:
         with Timing.time("BA geometry optimization"):
-          self.surfels = geometry_opt.optimize_geometry_iteration(
-              self.surfels, self.kf, depth_cam, color_cam, self.calibration,
-              self.use_depth_residuals, self.use_descriptor_residuals,
-              slots=participating)
+          self._local_surfels(
+              lambda surfels, v: geometry_opt.optimize_geometry_iteration(
+                  surfels, v.kf, v.depth_cam, v.color_cam, v.calibration,
+                  self.use_depth_residuals, self.use_descriptor_residuals,
+                  slots=participating))
 
       # --- SURFEL MERGE (keyframes with new surfels) ---
       if do_surfel_updates and keyframes_with_new_surfels:
@@ -646,11 +801,12 @@ class DirectBA:
   def debug_verify_counts(self):
     """DebugVerifySurfelCount (kernel_verify_count.cc:39-60): recount live
     surfels on the device and CHECK the host mirrors' invariants."""
-    device_valid = int(torch.sum(self.surfels.valid))
+    surfels = self.surfels
+    device_valid = int(torch.sum(surfels.valid))
     log.check_eq(device_valid, self.surfel_count, "surfel count mirror")
-    watermark = int(self.surfels.count)
+    watermark = int(surfels.count)
     log.check_le(device_valid, watermark, "live surfels within watermark")
-    log.check_le(watermark, self.surfels.capacity, "watermark within store")
+    log.check_le(watermark, surfels.capacity, "watermark within store")
     log.check_le(watermark, self._watermark_bound,
                  "host watermark bound is an upper bound")
     log.check_eq(int(self.kf.count), self._kf_count_host,
@@ -674,9 +830,12 @@ class DirectBA:
             self._merge_surfels(i)
     with Timing.time("BA final surfel del. and radius upd."):
       before = None if transfer_free else self.surfel_count
-      self.surfels = surfel_ops.delete_surfels_and_update_radii(
-          self.surfels, self.kf, self.depth_camera(), self.calibration,
-          self.get_min_observation_count(), True, slots=self._valid_slots())
+      min_obs = self.get_min_observation_count()
+      slots = self._valid_slots()
+      self._local_surfels(
+          lambda surfels, v: surfel_ops.delete_surfels_and_update_radii(
+              surfels, v.kf, v.depth_cam, v.calibration, min_obs, True,
+              slots=slots))
       if before is not None:
         self.num_surfels_deleted += max(0, before - self.surfel_count)
     if transfer_free:
@@ -685,7 +844,7 @@ class DirectBA:
     # when fragmentation is high, so the watermark does not creep toward
     # the capacity.
     if (self.surfel_watermark - self.surfel_count
-        > max(1024, self.surfels.capacity // 4)):
+        > max(1024, self.surfel_capacity // 4)):
       with Timing.time("BA surfel compaction"):
         self.surfels = surfels_mod.compact(self.surfels)
 
@@ -754,9 +913,11 @@ class DirectBA:
   def assign_colors(self):
     """Refresh surfel colors by averaging their observations across all
     keyframes (DirectBA::AssignColors, direct_ba.cc:456-459)."""
-    self.surfels = surfel_ops.assign_colors(
-        self.surfels, self.kf, self.depth_camera(), self.color_camera(),
-        self.calibration, slots=self._valid_slots())
+    slots = self._valid_slots()
+    self._local_surfels(
+        lambda surfels, v: surfel_ops.assign_colors(
+            surfels, v.kf, v.depth_cam, v.color_cam, v.calibration,
+            slots=slots))
 
   def export_point_cloud(self, refresh_colors: bool = True
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

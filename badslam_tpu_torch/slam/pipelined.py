@@ -66,6 +66,9 @@ class PipelinedState:
     self.edge_weight = None
 
   def ensure_edge_capacity(self, capacity: int, device: torch.device):
+    """Size the edge weights to the keyframe capacity, on ``device``: the
+    mesh's first device under a mesh, where JAX (:78-91) replicates them
+    over the mesh; the port's closure computes on that one device."""
     if self.edge_weight is None:
       self.edge_weight = torch.ones(capacity, dtype=torch.float32,
                                     device=device)

@@ -53,6 +53,17 @@ newest publication once, at the start of a frame, and waits for its event.
 Both readers of one frame (the preprocess kernel and odometry) thus see the
 same values, whatever the BA thread writes meanwhile.
 
+The mesh (``mesh=``, JAX :154-165): the back-end runs with its surfel
+store sharded over the mesh (``DirectBA`` mesh mode); everything else,
+preprocessing, odometry, the loop closure and the pipelined state machine,
+computes on the mesh's first device, which is ``device``. JAX serializes the
+SPMD programs of its two host threads behind ``_spmd_dispatch_lock``,
+because XLA's collective rendezvous deadlocks when two threads submit
+programs in different per-device orders; the port's collectives meet at
+barriers made per ``shard_map`` call, between the workers of that call
+only, so two threads' calls cannot interleave into that hazard and the
+port has no such lock.
+
 Loop detection (``loop/detector.py``) runs its feature extraction and
 database query on a thread of its own unless ``parallel_loop_detection`` is
 off; the closing runs inside the keyframe's registration: on the main
@@ -138,11 +149,19 @@ def check_supported(config: BadSlamConfig, device: torch.device) -> None:
 class BadSlam:
   """The system orchestrator (class BadSlam, bad_slam.h). It computes on
   ``device``: the CUDA device when none is named, the CPU only when the
-  caller asks for it. ``loop_detector`` replaces the one that
-  ``config.enable_loop_detection`` would build."""
+  caller asks for it, the mesh's first device under a ``mesh``
+  (``parallel/spmd.Mesh``), over which the back-end is sharded.
+  ``loop_detector`` replaces the one that ``config.enable_loop_detection``
+  would build."""
 
   def __init__(self, config: BadSlamConfig, rgbd_video: RGBDVideo,
-               device=None, loop_detector=None):
+               device=None, loop_detector=None, mesh=None):
+    if mesh is not None:
+      if device is not None and torch.device(device).type != \
+          mesh.first_device.type:
+        raise ValueError(f"device {device} and a mesh over "
+                         f"{mesh.first_device}")
+      device = mesh.first_device
     self.device = torch.device("cuda" if device is None else device)
     if self.device.type == "cuda" and not torch.cuda.is_available():
       raise NoCudaDeviceError(
@@ -188,7 +207,7 @@ class BadSlam:
           config.depth_deformation_a, config.baseline_fx, self.device)
       self.direct_ba = DirectBA(
           config, depth_cam, color_cam, device=self.device,
-          calibration=self.calibration)
+          calibration=self.calibration, mesh=mesh)
     if self._ba_stream is not None:
       torch.cuda.current_stream(self.device).wait_stream(self._ba_stream)
     if loop_detector is None and config.enable_loop_detection:

@@ -21,6 +21,12 @@ them:
 On the CPU there is nothing to wait for: ``to_device`` copies the array and
 ``DonePoll`` reads the flag at once, in ``read_flag``, the one read of a
 tensor that the pipelined loop makes.
+
+Inside ``parallel/spmd.shard_map`` the members of a collective group hold
+the same flag but may see its copies land at different iterations; a poll
+given the group's ``axis`` ends the loop for all of them once one has seen
+the flag set (a host-side ``psum``), so every member makes the same
+collectives.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from badslam_tpu_torch.parallel import spmd
 
 
 def to_device(array, device: torch.device) -> torch.Tensor:
@@ -51,13 +59,21 @@ class DonePoll:
   """Asks, without blocking, whether a device loop's done flag was set.
 
   ``done(flag)`` is called once per iteration with that iteration's flag;
-  it returns True once a copy of a set flag has been seen."""
+  it returns True once a copy of a set flag has been seen (by a member of
+  the mesh group along ``axis``, when one is given)."""
 
-  def __init__(self, device: torch.device):
+  def __init__(self, device: torch.device, axis=None):
     self._cuda = device.type == "cuda"
+    self._axis = axis
     self._pending: List[Tuple[torch.cuda.Event, torch.Tensor]] = []
 
   def done(self, flag: torch.Tensor) -> bool:
+    seen = self._seen(flag)
+    if self._axis is not None:
+      seen = spmd.psum(int(seen), self._axis) > 0
+    return seen
+
+  def _seen(self, flag: torch.Tensor) -> bool:
     if not self._cuda:
       return read_flag(flag)
     staged = torch.empty((), dtype=torch.bool, pin_memory=True)

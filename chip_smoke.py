@@ -89,13 +89,13 @@ Phases (any failure exits non-zero and prints no result line):
  17. the reference CLI's bare defaults (BA on its thread, on a
      low-priority CUDA stream, the frame's work on a high-priority one;
      loop detection on its thread) against the same command line with
-     --sequential_ba, in turns (sequential, defaults, defaults,
-     sequential), each with the gates of 7 (ATE, map, keyframes, PLY), and
-     for the defaults: ATE RMSE <= 1.18 mm (the formula's 640x480 value),
-     the BA iterations ran on the thread and no BA call on the main thread,
-     the streams' priorities, both threads stopped, the loops line "Loops
-     closed: 0, ignored: 0"; print warm frames/s and the CLI's wall time
-     (the BA thread's drain at the end included) of all four;
+     --sequential_ba, one run each (sequential, then defaults), each with
+     the gates of 7 (ATE, map, keyframes, PLY), and for the defaults: ATE
+     RMSE <= 1.18 mm (the formula's 640x480 value), the BA iterations ran
+     on the thread and no BA call on the main thread, the streams'
+     priorities, both threads stopped, the loops line "Loops closed: 0,
+     ignored: 0"; print warm frames/s and the CLI's wall time (the BA
+     thread's drain at the end included) of both;
  18. the defaults with --optimize_intrinsics --keyframe_interval 5: the
      gates of 17 and 11's intrinsics gate (exported depth intrinsics within
      0.1 px of the dataset's camera, and moved); the BA thread published
@@ -120,9 +120,9 @@ Phases (any failure exits non-zero and prints no result line):
  23. check that no module of JAX or of the JAX package was imported;
  24. the pipelined front-end on the CLI: phase 7's command line with
      --pipelined_frontend in place of --sequential_ba, without
-     device-accurate timings or the BA iteration stream, in turns with
-     the --sequential_ba line and with 26's (sequential, pipelined,
-     concurrent, concurrent, pipelined, sequential), each with the gates
+     device-accurate timings or the BA iteration stream, one run each of
+     the --sequential_ba line, of it and of 26's (sequential, pipelined,
+     concurrent), each with the gates
      of 7 (ATE against 2.77 mm, printed beside the formula's 1.18 mm, map
      median, 6 keyframes, PLY) and one launch per frame; print warm
      frames/s, the CLI's wall time and peak device memory of each;
@@ -172,9 +172,37 @@ Phases (any failure exits non-zero and prints no result line):
  31. the snapshot inspector on 11's saved state with --render,
      --export_point_cloud and --export_poses: the PLY has 11's surfel
      count, the trajectory equals 11's exported poses, one preview pair
-     per keyframe.
-Phases 29-31, then 17-22, 24-26 and 28 run after 14, on its dataset, and
-before 15; 27 runs last, before 23. Phase 29 comes before every other
+     per keyframe;
+ 32. the four sharded steps of parallel/sharded_ba.py on virtual meshes
+     over the card (every position on cuda:0): the BA iteration on 8
+     shards, the 2-D iteration on 2 x 4 (kf x surfels), the PCG step on 8
+     shards without and with the intrinsics unknowns, on phase 9's map at
+     640x480 (every keyframe and surfel active; 10 pose GN iterations,
+     15 CG iterations), each held against the one-device step on the same
+     state: positions 1e-5 and poses 1e-4 (the iteration), 1e-4 and 2e-4
+     (2-D), 2e-3 and 2e-4 (PCG; intrinsics 1e-3 px); print ms and kernel
+     launches (torch.profiler) per step on the mesh and on one device, and
+     the collectives per step;
+ 33. phase 7's command line in process over a 4-shard virtual mesh over
+     the card (the CLI offers no virtual mesh): the gates of 7 (ATE <=
+     2.77 mm, map median < 1e-3 m, one launch per frame, keyframes, PLY),
+     the trajectory within 1e-4 m of phase 7's and the live surfels within
+     1% + 16 of them; then two BA runs over the mesh from phase 8's state,
+     bitwise equal; print warm frames/s, ms per BA iteration, the bytes
+     the gathers of the store moved, the collectives and peak device
+     memory beside phase 7's;
+ 34. 21 frames each on the 4-shard mesh: the bare defaults (BA and
+     detection threads; 17's thread checks and 19's gates), the pipelined
+     front-end in process under the sync guard (ATE and map gates), and
+     a state saved on the mesh after 14 frames resumed on one device
+     against a state saved on one device resumed on the mesh (ATE and map
+     gates; the two trajectories within 1e-4 m, surfels within 1% + 16);
+ 35. --mesh_devices 2 on phase 7's command line: with one card visible it
+     exits non-zero with a message naming the visible count; with two it
+     is held to phase 7's gates and trajectory.
+Every phase prints its wall seconds, and the script the total before the
+kernels' line. Phases 29-31, then 17-22, 24-26, 28 and 32-35 run after
+14, on its dataset, and before 15; 27 runs last, before 23. Phase 29 comes before every other
 torch.profiler session of the process: once one has run, the next
 session can lose its first kernel record (torch 2.11: phase 29's trace
 lacked one of its 21 preprocess launches when it ran after 25-27), which a
@@ -468,11 +496,13 @@ def write_dataset(workdir: str) -> str:
   return data
 
 
-def run_cli(argv, label: str, launches_expected: int = FRAMES) -> dict:
+def run_cli(argv, label: str, launches_expected: int = FRAMES,
+            mesh=None) -> dict:
   """One run of the port's CLI with the kernel's launch count set to 0 just
   before and read just after; its standard output is echoed. ``slam`` in
   the result is the system the CLI built (it holds device memory: drop it
-  before the next run's peak is measured)."""
+  before the next run's peak is measured). ``mesh``: the system is built
+  over it (a virtual mesh over one card, which the CLI does not offer)."""
   import torch
   from badslam_tpu_torch import main as port_main
   from badslam_tpu_torch.ops import fused_preprocess as fp
@@ -482,6 +512,8 @@ def run_cli(argv, label: str, launches_expected: int = FRAMES) -> dict:
   original = system.BadSlam
 
   def recording_bad_slam(*args, **kwargs):
+    if mesh is not None:
+      kwargs["mesh"] = mesh
     built.append(original(*args, **kwargs))
     return built[-1]
 
@@ -699,15 +731,19 @@ def run_ba_path(workdir: str, data: str, odometry_ate: float) -> dict:
         f"calls")
   with open(timings_path) as f:
     print(f.read().rstrip())
-  return {"launches": run["launches"], "frames_per_s": warm_frames_per_s(run)}
+  return {"launches": run["launches"], "frames_per_s": warm_frames_per_s(run),
+          "surfels": checked["surfels"], "peak": run["peak"],
+          "ms_per_iteration": ba_ms / sum(iterations),
+          "poses": poses_path}
 
 
-def check_ba_determinism(data: str, device) -> None:
+def check_ba_determinism(data: str, device, mesh=None) -> None:
   """Phase 8: bundle adjustment twice from one map state, held bitwise
   equal. The state is the map after 21 frames without BA (3 keyframes,
   the first one's surfels), the second and third keyframe moved by a
   seeded perturbation of up to 1 mm and 0.3 mrad so that BA has several
-  iterations of work."""
+  iterations of work. With a ``mesh`` (phase 33) both schemes run over
+  it."""
   import torch
   from badslam_tpu_torch import main as port_main
   from badslam_tpu_torch.geometry import se3
@@ -730,16 +766,17 @@ def check_ba_determinism(data: str, device) -> None:
     noise = rng.uniform(-1, 1, 6) * ([1e-3] * 3 + [3e-4] * 3)
     kf["global_T_frame"][i] = kf["global_T_frame"][i] @ se3.exp(
         torch.as_tensor(noise, dtype=torch.float32)).numpy()
+  where = "" if mesh is None else f" over a {mesh.size}-shard mesh"
   for label, use_pcg, intrinsics in (
-      ("alternating", False, False),
-      ("use_pcg with both intrinsics flags", True, True)):
+      ("alternating" + where, False, False),
+      ("use_pcg with both intrinsics flags" + where, True, True)):
     scheme_config = dataclasses.replace(config, use_pcg=use_pcg)
     results = []
     for _ in range(2):
       # Self-calibration writes the calibration in place: each run its own.
       twin = DirectBA.from_numpy(
           scheme_config, video.depth_camera, video.color_camera, surfels, kf,
-          ba.calibration.clone(), host, device)
+          ba.calibration.clone(), host, device, mesh=mesh)
       outcome = twin.bundle_adjustment(
           optimize_depth_intrinsics=intrinsics,
           optimize_color_intrinsics=intrinsics, max_iterations=10,
@@ -774,6 +811,34 @@ def check_ba_determinism(data: str, device) -> None:
           f"calibration")
 
 
+MULTI_VIEW_KEYFRAMES = 8
+
+
+def multi_view_map(device, width: int = 640, height: int = 480):
+  """Phase 9's map: 8 keyframes see 8 planes from scattered poses,
+  sparsification 4, every keyframe's surfels created with the observation
+  filter. Returns (DirectBA, camera, configuration)."""
+  from badslam_tpu_torch.config import BadSlamConfig
+  from badslam_tpu_torch.slam.direct_ba import DirectBA
+  from badslam_tpu_torch.utils import synthetic
+  keyframes = MULTI_VIEW_KEYFRAMES
+  cam = synthetic.default_test_camera(width, height)
+  config = BadSlamConfig(
+      sparse_surfel_cell_size=4,
+      min_observation_count_while_bootstrapping_1=1,
+      min_observation_count_while_bootstrapping_2=1, min_observation_count=1,
+      initial_keyframe_capacity=keyframes, max_depth=20.0)
+  ba = DirectBA(config, cam, cam, device=device)
+  for i, (keyframe, T) in enumerate(synthetic.multi_view_plane_keyframes(
+      cam, n_kf=keyframes, n_planes=8, textured=True)):
+    ba.add_keyframe(*keyframe, T, i)
+  for i in range(keyframes):
+    ba.create_surfels_for_keyframe(i, filter_new_surfels=True)
+  if ba.surfel_count < 500:
+    fail(f"multi-view plane map: only {ba.surfel_count} surfels")
+  return ba, cam, config
+
+
 def calibration_error(calib, true_intr) -> dict:
   return {"intrinsics_px": float((calib.depth_intr - true_intr).abs().max()),
           "a": abs(float(calib.a)),
@@ -786,31 +851,16 @@ def check_self_calibration_recovery(device, width: int = 640,
   multi-view plane map by 60 alternated intrinsics steps, and moves toward
   the truth in a joint PCG bundle adjustment."""
   import torch
-  from badslam_tpu_torch.config import BadSlamConfig
   from badslam_tpu_torch.models import pcg
   from badslam_tpu_torch.slam.direct_ba import DirectBA
-  from badslam_tpu_torch.utils import synthetic
 
   def synchronize():
     if torch.device(device).type == "cuda":
       torch.cuda.synchronize()
 
-  keyframes = 8
-  cam = synthetic.default_test_camera(width, height)
-  config = BadSlamConfig(
-      sparse_surfel_cell_size=4,
-      min_observation_count_while_bootstrapping_1=1,
-      min_observation_count_while_bootstrapping_2=1, min_observation_count=1,
-      initial_keyframe_capacity=keyframes, max_depth=20.0)
+  keyframes = MULTI_VIEW_KEYFRAMES
   t0 = time.perf_counter()
-  ba = DirectBA(config, cam, cam, device=device)
-  for i, (keyframe, T) in enumerate(synthetic.multi_view_plane_keyframes(
-      cam, n_kf=keyframes, n_planes=8, textured=True)):
-    ba.add_keyframe(*keyframe, T, i)
-  for i in range(keyframes):
-    ba.create_surfels_for_keyframe(i, filter_new_surfels=True)
-  if ba.surfel_count < 500:
-    fail(f"self-calibration map: only {ba.surfel_count} surfels")
+  ba, cam, config = multi_view_map(device, width, height)
   surfels, kf, host = ba.to_numpy()
   true_intr = ba.calibration.depth_intr.clone()
   perturbation = torch.tensor(CAMERA_PERTURBATION_PX, device=device)
@@ -1399,13 +1449,17 @@ def check_threaded_run(run: dict, record: dict, label: str) -> dict:
   return {"thread_iterations": thread_iterations}
 
 
+# Phase 17's turns: two runs of each, in an order that balances drift.
+DEFAULTS_TURNS = ("sequential", "defaults", "defaults", "sequential")
+
+
 def run_defaults_path(workdir: str, data: str, ba_path: dict) -> dict:
   """Phase 17: the bare defaults against --sequential_ba, the same flags
-  otherwise, in turns (sequential, defaults, defaults, sequential)."""
-  out = {"launches": 0, "fps": {"defaults": [], "sequential": []},
+  otherwise, in DEFAULTS_TURNS."""
+  out = {"launches": 0, "frames": 0,
+         "fps": {"defaults": [], "sequential": []},
          "wall_s": {"defaults": [], "sequential": []}}
-  for turn, name in enumerate(("sequential", "defaults", "defaults",
-                               "sequential")):
+  for turn, name in enumerate(DEFAULTS_TURNS):
     label = f"{name} run {turn + 1}"
     tag = f"{name}{turn}"
     argv = bare_argv(workdir, data, tag)
@@ -1425,6 +1479,7 @@ def run_defaults_path(workdir: str, data: str, ba_path: dict) -> dict:
     out["fps"][name].append(fps)
     out["wall_s"][name].append(wall)
     out["launches"] += run["launches"]
+    out["frames"] += FRAMES
     print(f"{label}: ATE RMSE {checked['ate']!r} m (gate "
           f"{ATE_FORMULA_640_M!r} m for the defaults), warm frames/s "
           f"{fps!r}, the CLI's wall time for {FRAMES} frames {wall!r} s, "
@@ -1654,7 +1709,8 @@ def compare_prefetch(workdir: str, data: str) -> dict:
 # --- the pipelined front-end (phases 24-27) ---
 
 # Phases 24 and 26 in turns: the same command line with --sequential_ba,
-# with --pipelined_frontend, and with --pipelined_concurrent_ba added.
+# with --pipelined_frontend, and with --pipelined_concurrent_ba added, two
+# runs each, in an order that balances drift.
 PIPELINED_TURNS = ("sequential", "pipelined", "concurrent", "concurrent",
                    "pipelined", "sequential")
 PROFILED_FRAMES = (10, 11, 12)   # a keyframe and the two frames after it
@@ -1769,10 +1825,10 @@ def gn_iteration_count():
 
 
 def in_process_system(workdir: str, data: str, mode: str, device,
-                      extra: tuple = ()):
+                      extra: tuple = (), mesh=None):
   """A BadSlam built as the CLI builds it from ``mode``'s command line
   (plus the flags ``extra``): the same configuration, the dataset with the
-  page-locked prefetcher."""
+  page-locked prefetcher; over ``mesh`` if one is given."""
   from badslam_tpu_torch import main as port_main
   from badslam_tpu_torch.io import dataset as dataset_io
   from badslam_tpu_torch.slam.system import BadSlam
@@ -1782,7 +1838,7 @@ def in_process_system(workdir: str, data: str, mode: str, device,
   video = dataset_io.load_tum_dataset(
       data, None, raw_to_float_depth=config.raw_to_float_depth)
   video.enable_prefetch(pin_memory=True)
-  return BadSlam(config, video, device=device), video
+  return BadSlam(config, video, device=device, mesh=mesh), video
 
 
 PROFILED_SPAN = "profiled frames"
@@ -2378,6 +2434,367 @@ def check_inspector(workdir: str, saved: dict) -> None:
         f"phase 11's; {len(names) // 2} keyframe previews; {seconds:.1f} s")
 
 
+# --- distribution (phases 32-35) ---
+
+# Phase 32's meshes: 8 shards, and 2 x 4 (kf x surfels), over the one card;
+# phases 33-34: 4 shards.
+MESH_SHARDS = 4
+# Phase 34's runs: the first 21 frames; the state is saved after 14.
+MESH_SAVE_FRAMES = 14
+# A mesh run's trajectory against the one-device run's (metres, positions),
+# and its live surfels within 1% + 16 of the one-device run's.
+MESH_TRAJECTORY_GATE_M = 1e-4
+
+
+def virtual_mesh(device, shape, axes):
+  """A mesh whose every position is ``device``."""
+  from badslam_tpu_torch.parallel.spmd import Mesh
+  devices = np.empty(int(np.prod(shape)), dtype=object)
+  for i in range(devices.size):
+    devices[i] = device
+  return Mesh(devices.reshape(shape), axes)
+
+
+def surfels_agree(count: int, reference: int) -> bool:
+  return abs(count - reference) <= 0.01 * reference + 16
+
+
+def step_cost(fn, profiled: bool) -> dict:
+  """Wall ms of one call of ``fn``, from the host's first launch to the
+  device's end (the caller ran it once before), and, where ``profiled``,
+  its kernel launches under torch.profiler."""
+  import torch
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  fn()
+  torch.cuda.synchronize()
+  ms = (time.perf_counter() - t0) * 1e3
+  launches = (profile_device(fn, warm=False)["launches"] if profiled
+              else "not profiled")
+  return {"ms": ms, "launches": launches}
+
+
+def check_sharded_steps(device) -> None:
+  """Phase 32: the four sharded steps of parallel/sharded_ba.py on virtual
+  meshes over the card, on phase 9's map, against the one-device steps."""
+  import torch
+  from badslam_tpu_torch.models import geometry_opt, pcg, pose_opt
+  from badslam_tpu_torch.parallel import sharded_ba, spmd
+  from badslam_tpu_torch.parallel.sharded_ba import KF_AXIS, SURFEL_AXIS
+  t0 = time.perf_counter()
+  ba, cam, config = multi_view_map(device)
+  ba.kf = ba.kf._replace(
+      activation=torch.where(ba.kf.valid, 2, 0).to(torch.int32))
+  ba.surfels = ba.surfels._replace(active=ba.surfels.valid)
+  s, kf, c = ba.surfels, ba.kf, ba.calibration
+  params = (c.a, c.cfactor, c.baseline_fx)
+  cell = config.sparse_surfel_cell_size
+  mesh1 = virtual_mesh(device, (8,), (SURFEL_AXIS,))
+  mesh2 = virtual_mesh(device, (2, 4), (KF_AXIS, SURFEL_AXIS))
+  s1 = sharded_ba.shard_surfels(s, mesh1)
+  s2 = sharded_ba.shard_surfels_2d(s, mesh2)
+  kf2 = sharded_ba.shard_keyframes_2d(kf, mesh2)
+  print(f"sharded steps: phase 9's map at {cam.width}x{cam.height}, "
+        f"{ba.keyframe_count} keyframes, {ba.surfel_count} surfels of "
+        f"capacity {s.capacity}, on a virtual 8-shard mesh and a 2 x 4 mesh "
+        f"over {device}; built in {time.perf_counter() - t0:.1f} s",
+        flush=True)
+
+  def single_iteration(max_pose_iterations):
+    s_ref = geometry_opt.optimize_geometry_iteration(s, kf, cam, cam, c)
+    optimize = kf.valid & (kf.activation != 0)
+    T, _ = pose_opt.estimate_frame_poses_batched(
+        kf.global_T_frame, optimize, s_ref, kf.depth, kf.normals,
+        kf.intensity, cam, cam, c, max_iterations=max_pose_iterations)
+    return {"positions": s_ref.pos, "poses": T}
+
+  def single_pcg(intrinsics):
+    delta = pcg.pcg_solve(s, kf, cam, cam, c, 0, 15, opt_dintr=intrinsics,
+                          opt_cintr=intrinsics)
+    s_out, kf_out = pcg.apply_pcg_delta(s, kf, delta)
+    out = {"positions": s_out.pos, "poses": kf_out.global_T_frame}
+    if intrinsics:
+      di, ci, _, _ = pcg.apply_pcg_delta_intrinsics(
+          c.depth_intr, ba.color_intr, c.a, c.cfactor, delta, True, True)
+      out.update(depth_intr=di, color_intr=ci)
+    return out
+
+  def fields(out):
+    got = {"positions": spmd.gather(out[0].pos),
+           "poses": spmd.gather(out[1].global_T_frame)}
+    if len(out) == 7:
+      got.update(depth_intr=out[2], color_intr=out[3])
+    return got
+
+  # Ten pose GN iterations in both iterations: the launches repeat per
+  # shard, and the profiled call of each step must stay short.
+  it1 = sharded_ba.make_sharded_ba_iteration(mesh1, cam, cam, cell,
+                                             max_pose_iterations=10)
+  it2 = sharded_ba.make_sharded_ba_iteration_2d(mesh2, cam, cam, cell,
+                                                max_pose_iterations=10)
+  pcg1 = sharded_ba.make_sharded_pcg_step(mesh1, cam, cam, cell,
+                                          max_inner_iterations=15)
+  pcg1i = sharded_ba.make_sharded_pcg_step(
+      mesh1, cam, cam, cell, max_inner_iterations=15, opt_dintr=True,
+      opt_cintr=True)
+  # The launches are counted under torch.profiler for one step, the PCG
+  # step on 8 shards, the cheapest: the profiler takes ~0.1-0.25 ms per
+  # launch, and the sharded steps launch 80,000-180,000 kernels.
+  cases = (
+      ("1-D iteration, 8 shards", lambda: it1(s1, kf, *params),
+       lambda: single_iteration(10), {"positions": 1e-5, "poses": 1e-4},
+       False),
+      ("2-D iteration, 2 x 4", lambda: it2(s2, kf2, *params),
+       lambda: single_iteration(10), {"positions": 1e-4, "poses": 2e-4},
+       False),
+      ("PCG step, 8 shards", lambda: pcg1(s1, kf, *params, 0),
+       lambda: single_pcg(False), {"positions": 2e-3, "poses": 2e-4}, True),
+      ("PCG step with the intrinsics unknowns, 8 shards",
+       lambda: pcg1i(s1, kf, *params, 0), lambda: single_pcg(True),
+       {"positions": 2e-3, "poses": 2e-4, "depth_intr": 1e-3,
+        "color_intr": 1e-3}, False))
+  for label, sharded, single, tolerances, profiled in cases:
+    got, want = fields(sharded()), single()
+    errors = {k: float((got[k] - want[k]).abs().max()) for k in tolerances}
+    spmd.reset_collective_stats()
+    cost = step_cost(sharded, profiled)
+    stats = spmd.collective_stats()
+    per_step = {k: v / (2 if profiled else 1) for k, v in stats.items()}
+    single_cost = step_cost(single, profiled)
+    line = (f"sharded {label}: largest difference from the one-device "
+            f"step {errors} (tolerances {tolerances}); {cost['ms']!r} ms "
+            f"and {cost['launches']} kernel launches per step on the mesh, "
+            f"{single_cost['ms']!r} ms and {single_cost['launches']} "
+            f"launches on one device; {per_step['collectives']!r} "
+            f"collectives reducing {per_step['bytes']!r} bytes of partials "
+            f"per step")
+    if not all(errors[k] <= tolerances[k] for k in tolerances):
+      fail(line)
+    print(line, flush=True)
+
+
+def run_mesh_ba_path(workdir: str, data: str, ba_path: dict,
+                     device) -> dict:
+  """Phase 33: phase 7's command line in process over a MESH_SHARDS-shard
+  virtual mesh over the card, then two BA runs over it from one state."""
+  from badslam_tpu_torch.io.dataset import read_tum_trajectory
+  from badslam_tpu_torch.parallel import spmd
+  from badslam_tpu_torch.parallel.sharded_ba import SURFEL_AXIS
+  label = f"{MESH_SHARDS}-shard mesh BA path"
+  mesh = virtual_mesh(device, (MESH_SHARDS,), (SURFEL_AXIS,))
+  poses_path = os.path.join(workdir, "poses_mesh.txt")
+  spmd.reset_collective_stats()
+  run = run_cli(ba_path_argv(workdir, data, "mesh"), label, mesh=mesh)
+  collectives = spmd.collective_stats()
+  checked = check_map_run(run, label, data, poses_path,
+                          os.path.join(workdir, "map_mesh.ply"),
+                          KEYFRAME_INTERVAL_BA)
+  _, est = read_tum_trajectory(poses_path)
+  _, ref = read_tum_trajectory(ba_path["poses"])
+  diff = float(np.abs(est[:, :3, 3] - ref[:, :3, 3]).max())
+  iterations = ba_iterations_per_call(
+      os.path.join(workdir, "iterations_mesh.txt"), label)
+  stats = run["stats"]
+  ba_ms = sum(stats["Bundle adjustment"].samples) * 1e3
+  ba = run["slam"].direct_ba
+  gather = stats.get("Mesh surfel gather")
+  line = (f"{label}: trajectory within {diff!r} m of phase 7's (gate "
+          f"{MESH_TRAJECTORY_GATE_M} m); ATE RMSE {checked['ate']!r} m; "
+          f"{checked['surfels']} live surfels against phase 7's "
+          f"{ba_path['surfels']} (gate 1% + 16); warm frames/s "
+          f"{warm_frames_per_s(run)!r} against phase 7's "
+          f"{ba_path['frames_per_s']!r}; {ba_ms / sum(iterations)!r} ms per "
+          f"BA iteration against phase 7's "
+          f"{ba_path['ms_per_iteration']!r} (BA iterations per call "
+          f"{iterations}); {ba.mesh_gathers} gathers of the store moved "
+          f"{ba.mesh_gather_bytes} bytes in "
+          f"{0.0 if gather is None else gather.total * 1e3!r} ms; "
+          f"{collectives['collectives']} collectives reduced "
+          f"{collectives['bytes']} bytes of partials; peak device memory "
+          f"{run['peak']} bytes against phase 7's {ba_path['peak']}")
+  if (not diff <= MESH_TRAJECTORY_GATE_M
+      or not surfels_agree(checked["surfels"], ba_path["surfels"])):
+    fail(line)
+  print(line, flush=True)
+  print_phases(stats, BA_PHASES + ("Mesh surfel gather",
+                                   "Mesh surfel sharding"), {})
+  launches = run["launches"]
+  del run, ba
+  gc.collect()
+  check_ba_determinism(data, device, mesh=mesh)
+  return {"launches": launches, "frames": FRAMES}
+
+
+def check_partial_run(workdir: str, data: str, tag: str, frames: int,
+                      label: str) -> dict:
+  """The trajectory (ATE) and map (median |error|) gates of a run over the
+  first ``frames`` frames that exported into files named by ``tag``."""
+  from badslam_tpu_torch.io import ply
+  from badslam_tpu_torch.io.dataset import read_tum_trajectory
+  from badslam_tpu_torch.utils import synthetic
+  _, gt = read_tum_trajectory(os.path.join(data, "groundtruth.txt"))
+  _, est = read_tum_trajectory(os.path.join(workdir, f"poses_{tag}.txt"))
+  if est.shape != (frames, 4, 4) or not np.isfinite(est).all():
+    fail(f"{label}: trajectory {est.shape}")
+  ate = ate_rmse(est[:, :3, 3].astype(np.float64),
+                 gt[:frames, :3, 3].astype(np.float64))
+  pos, _, _ = ply.load_point_cloud_ply(os.path.join(workdir,
+                                                    f"map_{tag}.ply"))
+  err = synthetic.surfel_map_error(pos)["median_abs_m"]
+  line = (f"{label}: {frames} frames, ATE RMSE {ate!r} m (gate "
+          f"{ATE_GATE_M} m), {len(pos)} surfels, map median |error| {err!r} "
+          f"m (gate {MAP_MEDIAN_GATE_M} m)")
+  if not ate <= ATE_GATE_M or not err < MAP_MEDIAN_GATE_M:
+    fail(line)
+  print(line, flush=True)
+  return {"poses": est, "surfels": len(pos)}
+
+
+def run_mesh_paths(workdir: str, data: str, device) -> dict:
+  """Phase 34: over INPUT_PATH_FRAMES frames on a MESH_SHARDS-shard virtual
+  mesh: the bare defaults (BA and detection threads), the pipelined
+  front-end in process under the sync guard, and a state saved on the mesh
+  resumed on one device and the reverse."""
+  from badslam_tpu_torch.parallel.sharded_ba import SURFEL_AXIS
+  from badslam_tpu_torch.utils import synthetic
+  mesh = virtual_mesh(device, (MESH_SHARDS,), (SURFEL_AXIS,))
+  frames = INPUT_PATH_FRAMES
+  out = {"launches": 0, "frames": 0, "restored": 0}
+
+  label = "bare defaults on the mesh"
+  argv = bare_argv(workdir, data, "mesh_defaults") + [
+      "--end_frame", str(frames - 1)]
+  with ba_thread_record() as record:
+    run = run_cli(argv, label, launches_expected=frames, mesh=mesh)
+  check_threaded_run(run, record, label)
+  check_partial_run(workdir, data, "mesh_defaults", frames, label)
+  print(f"{label}: warm frames/s {warm_frames_per_s(run)!r}, the CLI's "
+        f"wall time {wall_seconds(run['stdout'], label)!r} s, peak device "
+        f"memory {run['peak']} bytes", flush=True)
+  out["launches"] += run["launches"]
+  out["frames"] += frames
+  del run
+  gc.collect()
+
+  label = "pipelined front-end on the mesh under the sync guard"
+  slam, video = in_process_system(workdir, data, "pipelined", device,
+                                  mesh=mesh)
+  try:
+    run = guarded_run(slam, video, data, label, frames=frames)
+  finally:
+    slam.stop_ba_thread_and_wait()
+    video.close_prefetch()
+  pos, _, _ = slam.direct_ba.export_point_cloud()
+  err = synthetic.surfel_map_error(pos)["median_abs_m"]
+  line = (f"{label}: no synchronizing call in {frames} frames; the loop "
+          f"{run['loop_s']!r} s on the host; ATE RMSE {run['ate']!r} m (gate "
+          f"{ATE_GATE_M} m); map median |error| {err!r} m (gate "
+          f"{MAP_MEDIAN_GATE_M} m); {slam.direct_ba.mesh_gathers} gathers "
+          f"of {slam.direct_ba.mesh_gather_bytes} bytes")
+  if not err < MAP_MEDIAN_GATE_M:
+    fail(line)
+  print(line, flush=True)
+  out["launches"] += run["launches"]
+  out["frames"] += frames
+  del slam, video
+  gc.collect()
+
+  # Save after MESH_SAVE_FRAMES frames, resume for the rest: mesh to one
+  # device and one device to the mesh.
+  common = [data, "--sequential_ba", "--no_loop_detection",
+            "--restrict_fps_to", "0", "--max_depth", "5.0",
+            "--num_scales", "5"]
+  saved = {}
+  for name, saver in (("mesh", mesh), ("single", None)):
+    state = os.path.join(workdir, f"state_{name}.npz")
+    run = run_cli(common + ["--end_frame", str(MESH_SAVE_FRAMES - 1),
+                            "--save_state", state],
+                  f"state saved on {'the mesh' if saver else 'one device'}",
+                  launches_expected=MESH_SAVE_FRAMES, mesh=saver)
+    done = re.search(r"Done: \d+ frames .* (\d+) keyframes, (\d+) surfels",
+                     run["stdout"])
+    saved[name] = (state, int(done.group(1)))
+    out["launches"] += run["launches"]
+    out["frames"] += MESH_SAVE_FRAMES
+    del run
+  resumed = {}
+  for name, loader, tag in (("mesh", None, "mesh_to_single"),
+                            ("single", mesh, "single_to_mesh")):
+    state, keyframes = saved[name]
+    label = tag.replace("_", " ")
+    # One launch per restored keyframe, one for the odometry's base
+    # keyframe, one per frame after the resume.
+    expected = keyframes + 1 + frames - MESH_SAVE_FRAMES
+    run = run_cli(common + [
+        "--load_state", state, "--start_frame", str(MESH_SAVE_FRAMES),
+        "--end_frame", str(frames - 1),
+        "--export_poses", os.path.join(workdir, f"poses_{tag}.txt"),
+        "--export_point_cloud", os.path.join(workdir, f"map_{tag}.ply")],
+        f"resumed {label}", launches_expected=expected, mesh=loader)
+    if (loader is not None) != (run["slam"].direct_ba.mesh is not None):
+      fail(f"resumed {label}: the back-end's mesh is "
+           f"{run['slam'].direct_ba.mesh}")
+    resumed[tag] = check_partial_run(workdir, data, tag, frames,
+                                     f"resumed {label}")
+    out["launches"] += run["launches"]
+    out["restored"] += keyframes + 1
+    out["frames"] += frames - MESH_SAVE_FRAMES
+    del run
+  a, b = resumed["mesh_to_single"], resumed["single_to_mesh"]
+  diff = float(np.abs(a["poses"][:, :3, 3] - b["poses"][:, :3, 3]).max())
+  line = (f"state saved on the mesh and resumed on one device against the "
+          f"reverse, after {MESH_SAVE_FRAMES} of {frames} frames: "
+          f"trajectories within {diff!r} m (gate {MESH_TRAJECTORY_GATE_M} "
+          f"m), {a['surfels']} and {b['surfels']} surfels")
+  if (not diff <= MESH_TRAJECTORY_GATE_M
+      or not surfels_agree(b["surfels"], a["surfels"])):
+    fail(line)
+  print(line, flush=True)
+  gc.collect()
+  return out
+
+
+def check_mesh_devices_cli(workdir: str, data: str, ba_path: dict) -> dict:
+  """Phase 35: --mesh_devices 2 on phase 7's command line: refused with
+  the visible count on one card, held to phase 7's gates on two."""
+  import torch
+  from badslam_tpu_torch import main as port_main
+  from badslam_tpu_torch.io.dataset import read_tum_trajectory
+  label = "--mesh_devices 2 on the CLI"
+  visible = torch.cuda.device_count()
+  argv = ba_path_argv(workdir, data, "mesh_devices") + ["--mesh_devices",
+                                                        "2"]
+  if visible < 2:
+    code = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+      try:
+        code = port_main.main(argv)
+      except SystemExit as e:
+        code = e.code
+    expected = f"--mesh_devices 2: only {visible} CUDA device(s) visible"
+    line = f"{label}: {visible} card visible: exit {code!r}"
+    if code in (0, None) or expected not in str(code):
+      fail(f"{line}; expected a refusal naming the visible count")
+    print(line, flush=True)
+    return {"launches": 0, "frames": 0}
+  poses_path = os.path.join(workdir, "poses_mesh_devices.txt")
+  run = run_cli(argv, label)
+  checked = check_map_run(run, label, data, poses_path,
+                          os.path.join(workdir, "map_mesh_devices.ply"),
+                          KEYFRAME_INTERVAL_BA)
+  _, est = read_tum_trajectory(poses_path)
+  _, ref = read_tum_trajectory(ba_path["poses"])
+  diff = float(np.abs(est[:, :3, 3] - ref[:, :3, 3]).max())
+  line = (f"{label}: {visible} cards; trajectory within {diff!r} m of "
+          f"phase 7's, ATE RMSE {checked['ate']!r} m, {checked['surfels']} "
+          f"surfels against {ba_path['surfels']}")
+  if (not diff <= MESH_TRAJECTORY_GATE_M
+      or not surfels_agree(checked["surfels"], ba_path["surfels"])):
+    fail(line)
+  print(line, flush=True)
+  return {"launches": run["launches"], "frames": FRAMES}
+
+
 def main() -> int:
   here = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, here)
@@ -2405,6 +2822,7 @@ def main() -> int:
   print(card, flush=True)
 
   t0 = time.perf_counter()
+  start = t0
   build.load("fused_preprocess")
   seconds, ptxas = build.build_info["fused_preprocess"]
   print(f"built fused_preprocess in {time.perf_counter() - t0:.1f} s "
@@ -2413,36 +2831,57 @@ def main() -> int:
     if "registers" in line or "spill" in line or "smem" in line:
       print(f"  ptxas: {line.strip()}")
 
-  kernel = check_kernel(device)
+  seconds = {}
+
+  def timed(phase: str, fn, *args, **kwargs):
+    """``fn``'s result, its wall seconds printed and kept under
+    ``phase``."""
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    seconds[phase] = time.perf_counter() - t0
+    print(f"phase {phase}: {seconds[phase]:.1f} s wall", flush=True)
+    return result
+
+  kernel = timed("3", check_kernel, device)
   with tempfile.TemporaryDirectory() as workdir:
-    data = write_dataset(workdir)
-    path = run_main_path(workdir, data)
-    ba_path = run_ba_path(workdir, data, path["ate"])
-    check_ba_determinism(data, device)
-    check_self_calibration_recovery(device)
-    self_calibration = run_self_calibration_path(workdir, data, use_pcg=False)
-    joint = run_self_calibration_path(workdir, data, use_pcg=True)
-    restored = check_round_trip(workdir, data, self_calibration)
-    loop_cli = run_loop_detection_cli(workdir, data, ba_path)
+    data = timed("4", write_dataset, workdir)
+    path = timed("5-6", run_main_path, workdir, data)
+    ba_path = timed("7", run_ba_path, workdir, data, path["ate"])
+    timed("8", check_ba_determinism, data, device)
+    timed("9-10", check_self_calibration_recovery, device)
+    self_calibration = timed("11", run_self_calibration_path, workdir, data,
+                             use_pcg=False)
+    joint = timed("12", run_self_calibration_path, workdir, data,
+                  use_pcg=True)
+    restored = timed("13", check_round_trip, workdir, data,
+                     self_calibration)
+    loop_cli = timed("14", run_loop_detection_cli, workdir, data, ba_path)
     # Before any other torch.profiler session of this process: after one,
     # the first kernel record of the next session can be lost (CUPTI).
-    previewed = run_previews_and_trace(workdir, data)
-    check_render_on_card(previewed, device)
+    previewed = timed("29", run_previews_and_trace, workdir, data)
+    timed("30", check_render_on_card, previewed, device)
     del previewed["slam"]
-    check_inspector(workdir, self_calibration)
-    defaults = run_defaults_path(workdir, data, ba_path)
-    threaded = run_threaded_self_calibration(workdir, data)
-    inputs = run_input_paths(workdir, data, INPUT_PATH_FRAMES)
-    prefetch = compare_prefetch(workdir, data)
-    pl_cli = run_pipelined_cli(workdir, data)
-    pl_proc = run_pipelined_in_process(workdir, data, device, pl_cli)
-    pl_calibration = run_pipelined_self_calibration(workdir, data, device)
-  config2 = check_config2(device)
-  blackout = check_bow_blackout(device)
-  pl_closure = check_device_closure(device)
+    timed("31", check_inspector, workdir, self_calibration)
+    defaults = timed("17", run_defaults_path, workdir, data, ba_path)
+    threaded = timed("18", run_threaded_self_calibration, workdir, data)
+    inputs = timed("19-21", run_input_paths, workdir, data,
+                   INPUT_PATH_FRAMES)
+    prefetch = timed("22", compare_prefetch, workdir, data)
+    pl_cli = timed("24, 26 (CLI)", run_pipelined_cli, workdir, data)
+    pl_proc = timed("25, 26 (in process)", run_pipelined_in_process,
+                    workdir, data, device, pl_cli)
+    pl_calibration = timed("28", run_pipelined_self_calibration, workdir,
+                           data, device)
+    timed("32", check_sharded_steps, device)
+    mesh_ba = timed("33", run_mesh_ba_path, workdir, data, ba_path, device)
+    mesh_paths = timed("34", run_mesh_paths, workdir, data, device)
+    mesh_cli = timed("35", check_mesh_devices_cli, workdir, data, ba_path)
+  config2 = timed("15", check_config2, device)
+  blackout = timed("16", check_bow_blackout, device)
+  pl_closure = timed("27", check_device_closure, device)
   # The kernel's launches on the main paths: one per frame of each CLI run
   # and of the two loop scenes, and the restored keyframes of the state
-  # round trip.
+  # round trips.
   launches = (path["launches"] + ba_path["launches"]
               + self_calibration["launches"] + joint["launches"] + restored
               + loop_cli["launches"] + defaults["launches"]
@@ -2450,11 +2889,16 @@ def main() -> int:
               + prefetch["launches"] + config2["launches"]
               + blackout["launches"] + pl_cli["launches"]
               + pl_proc["launches"] + pl_calibration["launches"]
-              + pl_closure["launches"] + previewed["launches"])
-  frames = (10 * FRAMES + 8 * INPUT_PATH_FRAMES
+              + pl_closure["launches"] + previewed["launches"]
+              + mesh_ba["launches"] + mesh_paths["launches"]
+              + mesh_cli["launches"])
+  restored += mesh_paths["restored"]
+  frames = (6 * FRAMES + 8 * INPUT_PATH_FRAMES
             + (KEYFRAME_INTERVAL_BA + 2) + 11 + blackout["frames"]
+            + defaults["frames"]
             + pl_cli["frames"] + pl_proc["frames"]
-            + pl_calibration["frames"] + pl_closure["frames"])
+            + pl_calibration["frames"] + pl_closure["frames"]
+            + mesh_ba["frames"] + mesh_paths["frames"] + mesh_cli["frames"])
   kernel["max_abs_err"] = max(kernel["max_abs_err"],
                               self_calibration["max_abs_err"],
                               inputs["max_abs_err"], pl_proc["max_abs_err"])
@@ -2462,6 +2906,10 @@ def main() -> int:
                    if m.split(".")[0] in ("jax", "jaxlib", "badslam_tpu"))
   if foreign:
     fail(f"modules of JAX or of the JAX package were imported: {foreign}")
+  print("phase wall seconds: " + json.dumps(
+      {k: round(v, 1) for k, v in seconds.items()})
+        + f"; the whole script {time.perf_counter() - start:.1f} s",
+        flush=True)
 
   summary = {"kernels": [{
       "name": "fused_depth_preprocess", "route": "cuda",

@@ -275,7 +275,6 @@ def test_cli_ba_options_run(dataset, tmp_path, flags, map_gate):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh_devices", "2"],
     ["--prewarm"],
 ])
 def test_unported_flags_are_refused(dataset, flags):
