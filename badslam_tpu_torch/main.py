@@ -20,7 +20,7 @@ With no flag, BA runs on its thread and loop detection on another:
       [--export_calibration base] [--import_calibration base] \\
       [--save_state state.npz] [--load_state state.npz] \\
       [--render_preview dir [--render_mode M] [--render_every N]] \\
-      [--profile_dir dir] ...
+      [--profile_dir dir] [--prewarm [--prewarm_keyframes N]] ...
 
 Frames are decoded by a prefetching thread pool ahead of the frame loop
 (into page-locked memory on the GPU). ``--no_active_kf_window`` is accepted
@@ -34,8 +34,13 @@ last preview, as a gzipped Chrome trace that TensorBoard and Perfetto open:
 the CPU ops of every thread and the device's kernels and copies on every
 CUDA stream.
 
-Flags whose work is not ported yet are refused (SystemExit), each naming
-the ROADMAP item that will port it; none is ignored silently.
+``--prewarm`` runs the live loop's device work on synthetic frames before
+the first real frame (``BadSlam.prewarm``), so that its first-use costs fall
+at startup; ``--prewarm_keyframes N`` also pre-sizes the keyframe store.
+
+One configuration is refused (SystemExit): ``--no_pallas_preprocess`` on a
+CUDA device, where the plain preprocess chain is only the kernel's test
+reference. No flag is ignored silently.
 """
 
 from __future__ import annotations
@@ -178,14 +183,18 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument("--render_every", type=int, default=1,
                  help="render every Nth keyframe viewpoint")
   p.add_argument("--prewarm", action="store_true",
-                 help="run the live loop's device programs on synthetic"
-                      " frames of the dataset's shape before the first real"
-                      " frame (the autotune-database-preload analog,"
+                 help="run the live loop's device work on synthetic frames"
+                      " of the dataset's shape before the first real frame,"
+                      " so that first-use costs (the kernel's build and"
+                      " load, library handles, lazy module loading,"
+                      " allocator growth) fall at startup instead of"
+                      " mid-run (the autotune-database-preload analog,"
                       " main.cc:437-447)")
   p.add_argument("--prewarm_keyframes", type=int, default=0,
-                 help="with --prewarm: also run the BA programs for"
-                      " every active-window bucket / store capacity a map of"
-                      " this many keyframes passes through")
+                 help="with --prewarm: pre-size the keyframe store for this"
+                      " many keyframes and also run a BA iteration at every"
+                      " store capacity a map of this many keyframes passes"
+                      " through")
   # The one flag the reference CLI lacks (it chose its backend through the
   # JAX_PLATFORMS environment variable).
   p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -247,15 +256,6 @@ def config_from_args(args) -> BadSlamConfig:
   )
 
 
-def _refuse_unported_flags(args) -> None:
-  """CLI-only flags outside the port (the configuration's own fields are
-  checked by BadSlam)."""
-  if args.prewarm or args.prewarm_keyframes > 0:
-    raise SystemExit(
-        "--prewarm: the port has no compile step to move out of the frame "
-        "loop (ROADMAP \"Code the port leaves out\")")
-
-
 def build_mesh(n_devices: int, device: str):
   """The mesh of ``--mesh_devices`` (JAX :221-249): none for ``n <= 1``;
   ``n`` virtual shards of the CPU with ``--device cpu`` (JAX forces the
@@ -283,7 +283,6 @@ def run(args) -> int:
   from badslam_tpu_torch.slam.system import BadSlam, NoCudaDeviceError
   from badslam_tpu_torch.utils import logging as log
 
-  _refuse_unported_flags(args)
   if args.log_level:
     log.set_level(args.log_level)
   config = config_from_args(args)
@@ -374,6 +373,7 @@ def _run_and_export(args, config, video, slam) -> int:
   from badslam_tpu_torch.io import dataset as dataset_io
   from badslam_tpu_torch.io import ply
   from badslam_tpu_torch.io import state as state_io
+  from badslam_tpu_torch.utils import logging as log
   from badslam_tpu_torch.utils.timing import Timing
 
   if args.device_accurate_timings:
@@ -384,6 +384,11 @@ def _run_and_export(args, config, video, slam) -> int:
     state_io.load_calibration(args.import_calibration, slam)
   if args.load_state:
     state_io.load_state(args.load_state, slam)
+  if args.prewarm or args.prewarm_keyframes > 0:
+    t_warm = time.perf_counter()
+    slam.prewarm(max_ba_keyframes=(args.prewarm_keyframes or None))
+    if not args.quiet:
+      log.info(f"Prewarm finished in {time.perf_counter() - t_warm:.1f} s")
 
   end = min(video.frame_count() - 1, config.end_frame)
   t_start = time.perf_counter()

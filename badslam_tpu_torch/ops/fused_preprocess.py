@@ -69,6 +69,12 @@ def _launcher():
   return fn
 
 
+def load_kernel() -> None:
+  """Build the kernel's library if need be and load it now, ahead of the
+  first launch (``BadSlam.prewarm``); raises if either fails."""
+  _launcher()
+
+
 def fused_depth_preprocess(
     raw_depth: torch.Tensor, calib: DepthCalibration, *, sigma_xy: float,
     sigma_inv_depth: float, radius_factor: float, max_depth: float

@@ -57,6 +57,7 @@ after every write and are copied whole.
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -428,6 +429,40 @@ class DirectBA:
     if k < 10:
       return self.config.min_observation_count_while_bootstrapping_2
     return self.config.min_observation_count
+
+  def clone_for_prewarm(self) -> "DirectBA":
+    """A throwaway copy for ``BadSlam.prewarm``'s warm-up BA iterations: a
+    ``bundle_adjustment`` run on it leaves this back-end bit for bit as it
+    was. JAX's shallow copy may share the device state because JAX arrays
+    are immutable; here the keyframe stacks, the surfel store and the
+    calibration are written in place (``add_keyframe``, self-calibration),
+    so the clone owns a copy of every tensor of the map and of the host
+    mirrors. Clones never feed results back."""
+    c = copy.copy(self)
+    c.kf = KeyframeStore(*(x.clone() for x in self.kf))
+    c.calibration = self.calibration.clone()
+    c.color_intr = self.color_intr.clone()
+
+    def cloned(x):
+      if not isinstance(x, spmd.Sharded):
+        return x.clone()
+      pieces = np.empty(x.pieces.shape, dtype=object)
+      for pos in np.ndindex(x.pieces.shape):
+        pieces[pos] = x.pieces[pos].clone()
+      return spmd.Sharded(x.mesh, x.axis, pieces)
+    store = self._store()
+    c._put(spmd.tree_map(cloned, store))
+    # The cached counts hold for the copies: carried over, not read again.
+    for name, field in (("_surfel_count_cache", "valid"),
+                        ("_surfel_watermark_cache", "count")):
+      cached_obj, cached_val = getattr(self, name)
+      if cached_obj is getattr(store, field):
+        setattr(c, name, (getattr(c._store(), field), cached_val))
+    c.last_active_in_ba_iteration = self.last_active_in_ba_iteration.copy()
+    c._kf_valid_host = self._kf_valid_host.copy()
+    c.pcg_inner_iterations = list(self.pcg_inner_iterations)
+    c.timings_stream = None
+    return c
 
   # --- keyframe management ---
 

@@ -253,6 +253,8 @@ class BadSlam:
     self._actual_frame_start_time = 0.0
     self._target_frame_end_time = 0.0
     self._frame_timer_start: Optional[float] = None
+    # Seconds per stage of the last prewarm() (None before one).
+    self.last_prewarm_breakdown: Optional[dict] = None
 
     # Parallel-BA state, guarded by _ba_lock: the keyframe queue (processed
     # frame, frame index, pose relative to the previous keyframe, detection
@@ -437,6 +439,210 @@ class BadSlam:
       self._actual_frame_start_time += actual_frame_time
       if self._actual_frame_start_time < self._target_frame_end_time:
         self._actual_frame_start_time = self._target_frame_end_time
+
+  # --- prewarm (--prewarm; JAX :396-643) ---
+
+  def prewarm(self, num_keyframes: int = 2,
+              max_ba_keyframes: Optional[int] = None,
+              compile_workers: Optional[int] = None) -> None:
+    """Pay the live loop's first-use costs before the first real frame: on
+    a live camera a spike in the middle of the run drops frames, one at
+    startup does not (the reference loads its kernel-autotuning database
+    before the frame loop, main.cc:437-447). JAX compiles its programs
+    here. The port compiles nothing per shape, but its frame loop still
+    pays on first use: the kernel library's build and load
+    (``kernels/build.py``), the cuBLAS and cuSOLVER handles, CUDA's lazy
+    loading of each kernel module at its first launch, and the caching
+    allocator's growth.
+
+    Pushes (num_keyframes - 1) * keyframe_interval + 3 synthetic frames of
+    the dataset's depth camera (``utils/synthetic.make_heightmap_video``
+    along ``utils/tum_synth.straight_trajectory``, the constant twist of
+    the odometry benchmark: JAX's pure 4 mm x steps over the heightmap do
+    not meet the tracking's convergence test and run several times the
+    live frames' Gauss-Newton iterations) through a THROWAWAY BadSlam of
+    this configuration, with loop detection,
+    the parallel BA thread, pacing and the start frame off, on the same
+    device and mesh (pipelined: with a trajectory buffer of the dataset's
+    frame count; ``pipelined_concurrent_ba`` still runs its BA thread).
+
+    max_ba_keyframes: then add keyframes to the throwaway map one at a time
+    up to this count, and run one transfer-free BA iteration over all of
+    them at each keyframe capacity the map passes through and at the first
+    count with self-calibration (``optimize_intrinsics`` from the tenth
+    keyframe on), with surfel updates only where the capacity grew; each
+    on a clone (``DirectBA.clone_for_prewarm``), so the throwaway surfel
+    store stays at its initial capacity. In pipelined mode with loop
+    detection the device closure runs too, at each capacity. An empty live
+    keyframe store is pre-sized to hold this many keyframes, so the live
+    run never doubles it (7.1 MB a slot at 640x480).
+
+    compile_workers: JAX's thread pool for concurrent compiles. The port
+    has no compile service: the tasks run in order on this thread, and the
+    argument is accepted for the signature and unused.
+
+    The live map, trajectory and calibration are left as they were: the
+    throwaway system has its own calibration and draws from no generator
+    of this one. The warm frames' ``Timing`` spans are kept apart from the
+    run's. ``last_prewarm_breakdown`` maps each stage to its seconds; where
+    the fused preprocess kernel's library was loaded inside the prewarm,
+    ``kernel_load_fused_preprocess`` holds the load's seconds and
+    ``kernel_nvcc_fused_preprocess`` the build's (0.0: it was built
+    already). A build or load that fails fails the prewarm.
+    """
+    import dataclasses
+    from badslam_tpu_torch.utils import synthetic, tum_synth
+
+    video = self.rgbd_video
+    if (video.depth_camera.width, video.depth_camera.height) != (
+        video.color_camera.width, video.color_camera.height):
+      # The warm-data generator renders one size for both streams.
+      log.warning("prewarm: depth/color camera sizes differ; skipping")
+      return
+    breakdown = {}
+
+    @contextlib.contextmanager
+    def stage(name):
+      t0 = time.perf_counter()
+      yield
+      breakdown[name] = time.perf_counter() - t0
+
+    if self.device.type == "cuda":
+      from badslam_tpu_torch.kernels import build
+      from badslam_tpu_torch.ops import fused_preprocess
+      if "fused_preprocess" not in build.build_info:
+        with stage("kernel_load_fused_preprocess"):
+          fused_preprocess.load_kernel()
+        breakdown["kernel_nvcc_fused_preprocess"] = (
+            build.build_info["fused_preprocess"][0])
+
+    cfg = dataclasses.replace(
+        self.config, enable_loop_detection=False, parallel_ba=False,
+        start_frame=0, fps_restriction=0, target_frame_rate=0)
+    if max_ba_keyframes and self.direct_ba.keyframe_count == 0:
+      self.direct_ba.reserve_keyframe_capacity(max_ba_keyframes)
+      cfg = dataclasses.replace(
+          cfg, initial_keyframe_capacity=self.direct_ba.kf.capacity)
+    n = (max(1, num_keyframes) - 1) * max(1, cfg.keyframe_interval) + 3
+    with stage("render_warm_frames"):
+      warm_video = synthetic.make_heightmap_video(
+          video.depth_camera, tum_synth.straight_trajectory(n),
+          raw_to_float_depth=video.raw_to_float_depth)
+
+    with Timing.isolated():
+      with stage("build_warm_system"):
+        warm = BadSlam(cfg, warm_video, device=self.device,
+                       mesh=self.direct_ba.mesh)
+        if warm._pipelined:
+          # The live run's trajectory buffer size, which also bounds the
+          # warm frames.
+          warm.pipelined_state = pipelined.PipelinedState(
+              video.frame_count(), self.device)
+          n = min(n, video.frame_count())
+      try:
+        for i in range(n):
+          with stage(f"warm_frame_{i}"):
+            warm.process_frame(i)
+      finally:
+        with stage("stop_warm_threads"):
+          warm.stop_ba_thread_and_wait()
+      self._prewarm_closure_program(warm.direct_ba, stage)
+      if max_ba_keyframes is not None:
+        self._prewarm_keyframe_growth(warm, cfg, n, max_ba_keyframes, stage)
+      if self.device.type == "cuda":
+        with stage("device_drain"):
+          torch.cuda.synchronize(self.device)
+    self.last_prewarm_breakdown = breakdown
+    log.info("prewarm breakdown: " + ", ".join(
+        f"{k}={v!r}s" for k, v in breakdown.items()))
+
+  def _prewarm_keyframe_growth(self, warm: "BadSlam", cfg: BadSlamConfig,
+                               first_frame_index: int, max_ba_keyframes: int,
+                               stage) -> None:
+    """Grow ``warm``'s map one keyframe at a time up to
+    ``max_ba_keyframes`` (copies of its base keyframe, 2 mm apart), with one
+    BA iteration on a clone per new (capacity, self-calibration) pair: the
+    port's counterpart of JAX's shape keys."""
+    ba_w = warm.direct_ba
+    processed = warm.base_kf_images
+    pl = warm.pipelined_state
+
+    def intrinsics(count):
+      return cfg.optimize_intrinsics and count >= 10
+
+    seen = {(ba_w.kf.capacity, intrinsics(ba_w.keyframe_count))}
+    warmed_caps = {ba_w.kf.capacity}
+    fi = first_frame_index
+    while ba_w.keyframe_count < max_ba_keyframes:
+      T = np.eye(4, dtype=np.float32)
+      T[0, 3] = 2e-3 * ba_w.keyframe_count
+      ba_w.add_keyframe(
+          processed.depth, processed.normals, processed.radius_sq,
+          processed.intensity, processed.rgb, T, fi)
+      fi += 1
+      count = ba_w.keyframe_count
+      cap_grew = ba_w.kf.capacity not in warmed_caps
+      warmed_caps.add(ba_w.kf.capacity)
+      if pl is not None:
+        # The edge weights follow the keyframe capacity (the growth loop
+        # bypasses _create_keyframe_pipelined).
+        pl.ensure_edge_capacity(ba_w.kf.capacity, warm.device)
+        pipelined.record_edge_weight(pl.edge_weight, count - 1, pl.fail_acc)
+      key = (ba_w.kf.capacity, intrinsics(count))
+      if key in seen:
+        continue
+      seen.add(key)
+      if cap_grew:
+        if pl is not None:
+          pipelined.keyframe_pose(ba_w.kf.global_T_frame, 0, pl.hist)
+        self._prewarm_closure_program(ba_w, stage)
+      with stage(f"ba_iteration_{count}_keyframes"):
+        ba_w.clone_for_prewarm().bundle_adjustment(
+            optimize_depth_intrinsics=(intrinsics(count)
+                                       and cfg.use_geometric_residuals),
+            optimize_color_intrinsics=(intrinsics(count)
+                                       and cfg.use_photometric_residuals),
+            do_surfel_updates=cfg.do_surfel_updates and cap_grew,
+            optimize_poses=True, optimize_geometry=True,
+            min_iterations=0, max_iterations=1,
+            active_keyframe_window_start=0,
+            active_keyframe_window_end=count - 1,
+            increase_ba_iteration_count=False, transfer_free=True)
+
+  def _prewarm_closure_program(self, ba_w: DirectBA, stage) -> None:
+    """One run of ``loop/device_closure.verify_and_close`` on ``ba_w``'s map
+    (keyframe 1 closing onto keyframe 0, no keypoints), whose first-use
+    costs would otherwise fall on the run's first loop candidate (JAX
+    :598-643). It reads the map and writes nothing. A no-op unless this
+    system is pipelined with loop detection."""
+    if not (self._pipelined and self.config.enable_loop_detection
+            and ba_w.keyframe_count >= 2):
+      return
+    from badslam_tpu_torch.loop import device_closure
+    kf, calib, dev = ba_w.kf, ba_w.calibration, ba_w.device
+
+    def track(base, tracked, init):
+      return self._track_pairwise(
+          calib, kf.depth[base], kf.normals[base], kf.intensity[base],
+          kf.depth[tracked], kf.normals[tracked], kf.intensity[tracked],
+          init, init, transfer_free=True)[0]
+
+    f32 = torch.float32
+    e_cap = max(1, kf.capacity - 1)
+    kb = device_closure.KEYPOINT_BUCKET
+    with stage(f"device_closure_capacity_{kf.capacity}"):
+      device_closure.verify_and_close(
+          kf.global_T_frame, kf.depth, track, calib.depth_intr,
+          calib.baseline_fx, 1, 0, 1, 1,
+          torch.eye(4, dtype=f32, device=dev),
+          torch.zeros((kb, 3), dtype=f32, device=dev),
+          torch.zeros((kb,), dtype=torch.bool, device=dev),
+          (1.0, 1.0, 0.0, 0.0),
+          torch.zeros(e_cap, dtype=torch.int64, device=dev),
+          torch.zeros(e_cap, dtype=torch.int64, device=dev),
+          torch.zeros(e_cap, dtype=f32, device=dev),
+          torch.ones(kf.capacity, dtype=f32, device=dev),
+          device_closure.empty_loop_edges(dev))
 
   def preprocess_frame(self, frame_index: int,
                        calibration: Optional[DepthCalibration] = None

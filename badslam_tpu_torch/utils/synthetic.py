@@ -17,6 +17,8 @@ port's normal and radius stencils. The TUM-format dataset writer is
 
 from __future__ import annotations
 
+import concurrent.futures
+import os
 from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -349,14 +351,18 @@ def make_heightmap_video(camera: PinholeCamera,
                          raw_to_float_depth: float = 1.0 / 5000.0,
                          fps: float = 30.0) -> RGBDVideo:
   """In-memory RGBDVideo of the heightmap world along ``trajectory`` (dense
-  texture and varied normals, so it tracks well), with grey RGB."""
-  def images():
-    for T in trajectory:
-      depth, intensity = render_heightmap(
-          camera, T, z_distance, z_variation, seed,
-          raw_to_float_depth=raw_to_float_depth)
-      yield _grey_rgb(intensity), depth
-  return _in_memory_video(camera, images(), raw_to_float_depth, fps)
+  texture and varied normals, so it tracks well), with grey RGB. The frames
+  render on up to RENDER_WORKERS threads (numpy releases the interpreter
+  lock), in order."""
+  def image(T):
+    depth, intensity = render_heightmap(
+        camera, T, z_distance, z_variation, seed,
+        raw_to_float_depth=raw_to_float_depth)
+    return _grey_rgb(intensity), depth
+  workers = max(1, min(RENDER_WORKERS, os.cpu_count() or 1, len(trajectory)))
+  with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+    return _in_memory_video(camera, pool.map(image, trajectory),
+                            raw_to_float_depth, fps)
 
 
 class SyntheticKeyframe(NamedTuple):

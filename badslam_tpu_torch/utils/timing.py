@@ -84,6 +84,21 @@ class Timing:
       cls.add_time(tag, time.perf_counter() - start)
 
   @classmethod
+  @contextlib.contextmanager
+  def isolated(cls):
+    """Record the block's spans into a registry of their own, which the
+    block gets, and put the earlier statistics back after it
+    (``BadSlam.prewarm``: its warm frames are not the run's)."""
+    with cls._lock:
+      saved, cls._stats = cls._stats, {}
+      block_stats = cls._stats
+    try:
+      yield block_stats
+    finally:
+      with cls._lock:
+        cls._stats = saved
+
+  @classmethod
   def reset(cls):
     with cls._lock:
       cls._stats.clear()

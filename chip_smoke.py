@@ -114,9 +114,9 @@ Phases (any failure exits non-zero and prints no result line):
  21. the same with --sequential_ba --export_reconstruction (cell 1): the
      dense cloud holds more than twice the surfels, finite, median |error|
      < 1e-3 m, and the back-end has its own calibration object back;
- 22. the odometry-only run of 5 over its first 21 frames without and with
-     the frame prefetcher, in turns (without, with, with, without): print
-     "Preprocessing" warm mean ms and warm frames/s of each;
+ 22. the odometry-only run of 5 over its first 21 frames without and then
+     with the frame prefetcher: print "Preprocessing" warm mean ms and warm
+     frames/s of each;
  23. check that no module of JAX or of the JAX package was imported;
  24. the pipelined front-end on the CLI: phase 7's command line with
      --pipelined_frontend in place of --sequential_ba, without
@@ -126,8 +126,8 @@ Phases (any failure exits non-zero and prints no result line):
      of 7 (ATE against 2.77 mm, printed beside the formula's 1.18 mm, map
      median, 6 keyframes, PLY) and one launch per frame; print warm
      frames/s, the CLI's wall time and peak device memory of each;
- 25. the same 51 frames in process through BadSlam, built as the CLI
-     builds it (page-locked prefetcher), under
+ 25. the first 21 of those frames in process through BadSlam, built as
+     the CLI builds it (page-locked prefetcher), under
      torch.cuda.set_sync_debug_mode("error") from the first process_frame
      to the last; then finalize_pipelined and the ATE and map gates; the
      kernel held against its plain version on a frame of the run (error
@@ -199,10 +199,27 @@ Phases (any failure exits non-zero and prints no result line):
      gates; the two trajectories within 1e-4 m, surfels within 1% + 16);
  35. --mesh_devices 2 on phase 7's command line: with one card visible it
      exits non-zero with a message naming the visible count; with two it
-     is held to phase 7's gates and trajectory.
+     is held to phase 7's gates and trajectory;
+ 36. the cold start: phase 7's command line in a fresh process per run
+     (no library handle and no kernel module loaded; build/ holds the
+     kernel's library from phase 2), without and with --prewarm
+     --prewarm_keyframes 6, in turns (without, with, with, without);
+     check: rc 0, phase 7's ATE and map gates, one launch per live frame
+     (counted from where prewarm returns) and one per warm frame, the four
+     trajectories equal to the last bit, and with --prewarm the kernel's
+     library loaded inside the prewarm (its logged breakdown); print per
+     run frame 0's and frame 1's ms, the first BA call's ms, the largest
+     frame's, warm frames/s, the prewarm's seconds and breakdown, the
+     seconds from the child's start to frame 0, launches live and warm,
+     and peak device memory of the live frames and of the prewarm, and
+     phase 2's nvcc seconds; then 21 frames of the pipelined front-end in
+     process, prewarm(max_ba_keyframes=3) outside
+     torch.cuda.set_sync_debug_mode("error") and every frame inside it,
+     with the ATE gate.
 Every phase prints its wall seconds, and the script the total before the
-kernels' line. Phases 29-31, then 17-22, 24-26, 28 and 32-35 run after
-14, on its dataset, and before 15; 27 runs last, before 23. Phase 29 comes before every other
+kernels' line. Phase 36 runs right after 7. Phases 29-31, then 17-22,
+24-26, 28 and 32-35 run after 14, on its dataset, and before 15; 27 runs
+last, before 23. Phase 29 comes before every other
 torch.profiler session of the process: once one has run, the next
 session can lose its first kernel record (torch 2.11: phase 29's trace
 lacked one of its 21 preprocess launches when it ran after 25-27), which a
@@ -735,6 +752,206 @@ def run_ba_path(workdir: str, data: str, odometry_ate: float) -> dict:
           "surfels": checked["surfels"], "peak": run["peak"],
           "ms_per_iteration": ba_ms / sum(iterations),
           "poses": poses_path}
+
+
+# Phase 36: the cold start. Phase 7's command line in fresh processes,
+# without and with --prewarm, in turns.
+COLD_START_TURNS = ("plain", "prewarm", "prewarm", "plain")
+COLD_START_PREWARM_KEYFRAMES = 6
+COLD_START_PIPELINED_FRAMES = 21
+CHILD_FLAG = "--cold-start-child"
+
+
+def cold_start_child(argv: list) -> int:
+  """A phase-36 run in a process of its own (``chip_smoke.py
+  --cold-start-child '<argv as JSON>'``): the CLI on ``argv``, then one line
+  ``cold start: {...}`` with what the parent reads. The kernel's launch
+  count is set to 0 where ``prewarm`` returns (the launches before are the
+  warm frames') and so is the peak memory. The odometry's Gauss-Newton
+  iterations are counted per frame, warm and live."""
+  t_start = time.perf_counter()
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  import torch
+  from badslam_tpu_torch import main as port_main
+  from badslam_tpu_torch.ops import fused_preprocess as fp
+  from badslam_tpu_torch.slam import system
+  from badslam_tpu_torch.utils.timing import Timing
+  record = {"warm_launches": 0, "prewarm_s": None, "prewarm_peak": None,
+            "warm_gn": [], "live_gn": []}
+  real_prewarm = system.BadSlam.prewarm
+  real_process_frame = system.BadSlam.process_frame
+  warming = []
+
+  def prewarm(self, *args, **kwargs):
+    t0 = time.perf_counter()
+    warming.append(True)
+    real_prewarm(self, *args, **kwargs)
+    warming.clear()
+    record["prewarm_s"] = time.perf_counter() - t0
+    record["warm_launches"] = fp.fused_depth_preprocess.launches
+    record["prewarm_peak"] = torch.cuda.max_memory_allocated()
+    fp.fused_depth_preprocess.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+  def process_frame(self, frame_index, *args, **kwargs):
+    live = not warming
+    if live and "first_frame_start_s" not in record:
+      record["first_frame_start_s"] = time.perf_counter() - t_start
+      # torch.broadcast_shapes imports sympy on its first call.
+      record["sympy_before_frame_0"] = "sympy" in sys.modules
+    gn0 = gn[0]
+    real_process_frame(self, frame_index, *args, **kwargs)
+    record["live_gn" if live else "warm_gn"].append(gn[0] - gn0)
+    if live:
+      record.setdefault("first_frame_end_s", time.perf_counter() - t_start)
+
+  system.BadSlam.prewarm = prewarm
+  system.BadSlam.process_frame = process_frame
+  fp.fused_depth_preprocess.launches = 0
+  with gn_iteration_count() as gn:
+    rc = port_main.main(argv)
+  stats = Timing.stats()
+  record.update(
+      rc=rc, launches=fp.fused_depth_preprocess.launches,
+      peak=torch.cuda.max_memory_allocated(),
+      frame_s=stats["[BadSlam::ProcessFrame]"].samples,
+      ba_s=stats["Bundle adjustment"].samples,
+      process_s=time.perf_counter() - t_start)
+  print("cold start: " + json.dumps(record), flush=True)
+  return 0
+
+
+def cold_start_cli(argv: list, label: str) -> dict:
+  """One cold-start child: its record, stdout and the prewarm breakdown it
+  logged (None without --prewarm)."""
+  proc = subprocess.run(
+      [sys.executable, os.path.abspath(__file__), CHILD_FLAG,
+       json.dumps(argv)], capture_output=True, text=True, timeout=600)
+  line = next((ln for ln in proc.stdout.splitlines()
+               if ln.startswith("cold start: ")), None)
+  if proc.returncode != 0 or line is None:
+    fail(f"{label}: exit code {proc.returncode}\n{proc.stdout[-3000:]}\n"
+         f"{proc.stderr[-3000:]}")
+  run = json.loads(line[len("cold start: "):])
+  if run["rc"] != 0:
+    fail(f"{label}: the CLI returned {run['rc']}")
+  logged = re.search(r"prewarm breakdown: (.*)", proc.stderr)
+  run["breakdown"] = None if logged is None else {
+      k: float(v.rstrip("s")) for k, v in
+      (item.split("=") for item in logged.group(1).split(", "))}
+  run["stdout"] = proc.stdout
+  return run
+
+
+def run_cold_start(workdir: str, data: str, device) -> dict:
+  """Phase 36: phase 7's command line in a fresh process per run (no
+  library handle, no kernel module loaded; build/ already holds the
+  kernel's library), without and with --prewarm --prewarm_keyframes 6 in
+  COLD_START_TURNS: rc 0, phase 7's ATE and map gates, one launch per live
+  frame, the four trajectories equal to the last bit, and with --prewarm
+  the kernel's library loaded inside the prewarm (its logged breakdown);
+  then 21 frames of the pipelined front-end in process, prewarmed outside
+  torch.cuda.set_sync_debug_mode("error") and every frame inside it."""
+  import torch
+  from badslam_tpu_torch.io.dataset import read_tum_trajectory
+  from badslam_tpu_torch.kernels import build
+  from badslam_tpu_torch.ops import fused_preprocess as fp
+  from badslam_tpu_torch.utils.timing import Timing
+  out = {"launches": 0, "frames": 0, "runs": []}
+  trajectories = []
+  for turn, name in enumerate(COLD_START_TURNS):
+    label = f"cold start {name} run {turn + 1}"
+    tag = f"cold{turn}"
+    argv = ba_path_argv(workdir, data, tag)
+    if name == "prewarm":
+      argv += ["--prewarm", "--prewarm_keyframes",
+               str(COLD_START_PREWARM_KEYFRAMES)]
+    run = cold_start_cli(argv, label)
+    poses = os.path.join(workdir, f"poses_{tag}.txt")
+    checked = check_map_run(run, label, data, poses,
+                            os.path.join(workdir, f"map_{tag}.ply"),
+                            KEYFRAME_INTERVAL_BA)
+    trajectories.append(read_tum_trajectory(poses))
+    if run["launches"] != FRAMES:
+      fail(f"{label}: {run['launches']} launches in the live frames, "
+           f"expected {FRAMES}")
+    breakdown = run["breakdown"]
+    warm_frames = 0
+    if name == "prewarm":
+      if breakdown is None or "kernel_load_fused_preprocess" not in breakdown:
+        fail(f"{label}: the kernel's library was not loaded inside the "
+             f"prewarm (breakdown {breakdown})")
+      warm_frames = sum(k.startswith("warm_frame_") for k in breakdown)
+      if run["warm_launches"] != warm_frames:
+        fail(f"{label}: {run['warm_launches']} launches in "
+             f"{warm_frames} warm frames")
+    elif breakdown is not None:
+      fail(f"{label}: a prewarm ran without --prewarm")
+    frame_s, ba_s = run["frame_s"], run["ba_s"]
+    largest = max(range(len(frame_s)), key=frame_s.__getitem__)
+    fps = (len(frame_s) - 2) / sum(frame_s[2:])
+    print(f"{label}: frame 0 {frame_s[0] * 1e3!r} ms, frame 1 "
+          f"{frame_s[1] * 1e3!r} ms, first BA call {ba_s[0] * 1e3!r} ms, "
+          f"largest frame {frame_s[largest] * 1e3!r} ms (frame {largest}); "
+          f"warm frames/s (2..{FRAMES - 1}) {fps!r}; prewarm "
+          f"{run['prewarm_s']!r} s; from the child's start (before it imports "
+          f"torch) to frame 0's start "
+          f"{run['first_frame_start_s']!r} s, to its end "
+          f"{run['first_frame_end_s']!r} s, to exit {run['process_s']!r} s; "
+          f"launches live {run['launches']}, warm {run['warm_launches']}; "
+          f"peak device memory: live frames {run['peak']} bytes, prewarm "
+          f"{run['prewarm_peak']} bytes; sympy imported before frame 0: "
+          f"{run['sympy_before_frame_0']}; ATE {checked['ate']!r} m; GN "
+          f"iterations per warm frame {run['warm_gn']}, per live frame 1-12 "
+          f"{run['live_gn'][1:13]}")
+    if breakdown is not None:
+      print(f"{label} prewarm breakdown (s): {json.dumps(breakdown)}")
+    out["launches"] += run["launches"] + run["warm_launches"]
+    out["frames"] += FRAMES + warm_frames
+    out["runs"].append({
+        "name": name, "frame0_ms": frame_s[0] * 1e3,
+        "frame1_ms": frame_s[1] * 1e3, "first_ba_ms": ba_s[0] * 1e3,
+        "largest_ms": frame_s[largest] * 1e3, "fps": fps,
+        "prewarm_s": run["prewarm_s"]})
+  ts0, poses0 = trajectories[0]
+  for ts, poses in trajectories[1:]:
+    if not (np.array_equal(ts, ts0) and np.array_equal(poses, poses0)):
+      fail("cold start: the trajectories of the four runs differ")
+  print(f"cold start: the {len(trajectories)} trajectories are equal to the "
+        f"last bit; the kernel's nvcc build in phase 2 took "
+        f"{build.build_info['fused_preprocess'][0]!r} s (what a fresh "
+        f"checkout pays in its first frame without --prewarm)")
+
+  label = "prewarmed pipelined front-end under the sync guard"
+  # Phase 7's in-process CLI run left device-accurate spans on: their
+  # barriers synchronize.
+  Timing.set_device_accurate(False)
+  slam, video = in_process_system(workdir, data, "pipelined", device)
+  try:
+    fp.fused_depth_preprocess.launches = 0
+    t0 = time.perf_counter()
+    slam.prewarm(max_ba_keyframes=3)
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    warm_launches = fp.fused_depth_preprocess.launches
+    run = guarded_run(slam, video, data, label,
+                      frames=COLD_START_PIPELINED_FRAMES)
+  finally:
+    slam.stop_ba_thread_and_wait()
+    video.close_prefetch()
+  warm_frames = sum(k.startswith("warm_frame_")
+                    for k in slam.last_prewarm_breakdown)
+  if warm_launches != warm_frames:
+    fail(f"{label}: {warm_launches} launches in {warm_frames} warm frames")
+  print(f"{label}: prewarm {prewarm_s!r} s ({warm_frames} warm frames); no "
+        f"synchronizing call in {COLD_START_PIPELINED_FRAMES} frames, the "
+        f"loop {run['loop_s']!r} s; ATE RMSE {run['ate']!r} m (gate "
+        f"{ATE_GATE_M} m)")
+  out["launches"] += run["launches"] + warm_launches
+  out["frames"] += COLD_START_PIPELINED_FRAMES + warm_frames
+  del slam, video
+  gc.collect()
+  return out
 
 
 def check_ba_determinism(data: str, device, mesh=None) -> None:
@@ -1449,8 +1666,9 @@ def check_threaded_run(run: dict, record: dict, label: str) -> dict:
   return {"thread_iterations": thread_iterations}
 
 
-# Phase 17's turns: two runs of each, in an order that balances drift.
-DEFAULTS_TURNS = ("sequential", "defaults", "defaults", "sequential")
+# Phase 17's runs: one of each (the script's length; phase 36 runs phase
+# 7's line four times in the same call).
+DEFAULTS_TURNS = ("sequential", "defaults")
 
 
 def run_defaults_path(workdir: str, data: str, ba_path: dict) -> dict:
@@ -1673,8 +1891,8 @@ def run_input_paths(workdir: str, data: str, frames: int) -> dict:
 
 def compare_prefetch(workdir: str, data: str) -> dict:
   """Phase 22: the odometry-only run (phase 5's flags) over the first
-  INPUT_PATH_FRAMES frames without and with the frame prefetcher, in turns
-  (without, with, with, without): the "Preprocessing" phase's warm mean."""
+  INPUT_PATH_FRAMES frames without and then with the frame prefetcher: the
+  "Preprocessing" phase's warm mean."""
   from badslam_tpu_torch.io import dataset as dataset_io
   argv = [data, "--keyframe_interval", "5", "--num_scales", "5",
           "--max_depth", "5.0", "--max_num_ba_iterations_per_keyframe", "0",
@@ -1685,7 +1903,7 @@ def compare_prefetch(workdir: str, data: str) -> dict:
   ms = {"without": [], "with": []}
   fps = {"without": [], "with": []}
   launches = 0
-  for name in ("without", "with", "with", "without"):
+  for name in ("without", "with"):
     if name == "without":
       dataset_io.RGBDVideo.enable_prefetch = lambda self, **kwargs: False
     try:
@@ -1698,7 +1916,7 @@ def compare_prefetch(workdir: str, data: str) -> dict:
     ms[name].append(statistics.mean(warm) * 1e3)
     fps[name].append(warm_frames_per_s(run))
     del run
-  print(f"Preprocessing warm mean ms, odometry-only, in turns: without the "
+  print(f"Preprocessing warm mean ms, odometry-only: without the "
         f"prefetcher {ms['without']}, with it {ms['with']} (page-locked, "
         f"non-blocking copies); warm frames/s without {fps['without']}, "
         f"with {fps['with']}")
@@ -1714,6 +1932,9 @@ def compare_prefetch(workdir: str, data: str) -> dict:
 PIPELINED_TURNS = ("sequential", "pipelined", "concurrent", "concurrent",
                    "pipelined", "sequential")
 PROFILED_FRAMES = (10, 11, 12)   # a keyframe and the two frames after it
+# Phase 25's runs under the sync guard: three keyframes, BA from the
+# second on (the CLI runs of 24 and 26 cover all 51 frames).
+GUARDED_FRAMES = 21
 
 
 def pipelined_argv(workdir: str, data: str, tag: str, mode: str) -> list:
@@ -1970,8 +2191,9 @@ def check_run_frame_kernel(slam, label: str) -> float:
 
 def run_pipelined_in_process(workdir: str, data: str, device,
                              pl_cli: dict) -> dict:
-  """Phases 25 and 26 (in process): the 51 frames through BadSlam under the
-  sync guard, inline and with the BA thread; the ATE and map gates; the
+  """Phases 25 and 26 (in process): GUARDED_FRAMES frames through BadSlam
+  under the sync guard, inline and with the BA thread; the ATE and map
+  gates; the
   kernel on one frame of the inline run; and torch.profiler over three warm
   frames of the host front-end and of each pipelined one. The profiler
   slows the host, so the device-busy share of a warm frame without it is
@@ -1986,7 +2208,7 @@ def run_pipelined_in_process(workdir: str, data: str, device,
     Timing.reset()
     slam, video = in_process_system(workdir, data, mode, device)
     try:
-      run = guarded_run(slam, video, data, label)
+      run = guarded_run(slam, video, data, label, frames=GUARDED_FRAMES)
     finally:
       slam.stop_ba_thread_and_wait()
       video.close_prefetch()
@@ -1995,12 +2217,14 @@ def run_pipelined_in_process(workdir: str, data: str, device,
     if not err["median_abs_m"] < MAP_MEDIAN_GATE_M:
       fail(f"{label}: map median |error| {err['median_abs_m']} m")
     out["launches"] += run["launches"]
-    out["frames"] += FRAMES
-    print(f"{label}: no synchronizing call in {FRAMES} frames; the loop "
+    out["frames"] += GUARDED_FRAMES
+    print(f"{label}: no synchronizing call in {GUARDED_FRAMES} frames; the "
+          f"loop "
           f"{run['loop_s']!r} s on the host, {run['total_s']!r} s to the "
           f"finalized trajectory; ATE RMSE {run['ate']!r} m (gate "
           f"{ATE_GATE_M} m); map median |error| {err['median_abs_m']!r} m; "
-          f"{run['gn'] / (FRAMES - 1)!r} GN iterations launched per tracked "
+          f"{run['gn'] / (GUARDED_FRAMES - 1)!r} GN iterations launched per "
+          f"tracked "
           f"frame; {slam.direct_ba.keyframe_count} keyframes, "
           f"{slam.direct_ba.surfel_count} live surfels")
     if mode == "concurrent":
@@ -2847,6 +3071,7 @@ def main() -> int:
     data = timed("4", write_dataset, workdir)
     path = timed("5-6", run_main_path, workdir, data)
     ba_path = timed("7", run_ba_path, workdir, data, path["ate"])
+    cold = timed("36", run_cold_start, workdir, data, device)
     timed("8", check_ba_determinism, data, device)
     timed("9-10", check_self_calibration_recovery, device)
     self_calibration = timed("11", run_self_calibration_path, workdir, data,
@@ -2880,8 +3105,8 @@ def main() -> int:
   blackout = timed("16", check_bow_blackout, device)
   pl_closure = timed("27", check_device_closure, device)
   # The kernel's launches on the main paths: one per frame of each CLI run
-  # and of the two loop scenes, and the restored keyframes of the state
-  # round trips.
+  # and of the two loop scenes, one per warm frame of a prewarm, and the
+  # restored keyframes of the state round trips.
   launches = (path["launches"] + ba_path["launches"]
               + self_calibration["launches"] + joint["launches"] + restored
               + loop_cli["launches"] + defaults["launches"]
@@ -2891,14 +3116,15 @@ def main() -> int:
               + pl_proc["launches"] + pl_calibration["launches"]
               + pl_closure["launches"] + previewed["launches"]
               + mesh_ba["launches"] + mesh_paths["launches"]
-              + mesh_cli["launches"])
+              + mesh_cli["launches"] + cold["launches"])
   restored += mesh_paths["restored"]
-  frames = (6 * FRAMES + 8 * INPUT_PATH_FRAMES
+  frames = (6 * FRAMES + 6 * INPUT_PATH_FRAMES
             + (KEYFRAME_INTERVAL_BA + 2) + 11 + blackout["frames"]
             + defaults["frames"]
             + pl_cli["frames"] + pl_proc["frames"]
             + pl_calibration["frames"] + pl_closure["frames"]
-            + mesh_ba["frames"] + mesh_paths["frames"] + mesh_cli["frames"])
+            + mesh_ba["frames"] + mesh_paths["frames"] + mesh_cli["frames"]
+            + cold["frames"])
   kernel["max_abs_err"] = max(kernel["max_abs_err"],
                               self_calibration["max_abs_err"],
                               inputs["max_abs_err"], pl_proc["max_abs_err"])
@@ -2929,4 +3155,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+  if sys.argv[1:2] == [CHILD_FLAG]:
+    sys.exit(cold_start_child(json.loads(sys.argv[2])))
   sys.exit(main())

@@ -198,10 +198,14 @@ def cli_pair(tmp_path_factory):
                                       "--save_state", str(out / "s.npz")])):
     poses = str(out / f"{name}.txt")
     stdout = io.StringIO()
+    # Threads that outlive the run and were not there before it (earlier
+    # tests in the same process may have left threads of either package).
+    before = set(threading.enumerate())
     with contextlib.redirect_stdout(stdout):
       rc = port_main.main([data, *CLI, "--export_poses", poses, *extra])
     runs[name] = dict(rc=rc, stdout=stdout.getvalue(), poses=poses,
-                      threads=[t.name for t in threading.enumerate()])
+                      threads=[t.name for t in threading.enumerate()
+                               if t not in before])
   return dict(data=data, runs=runs, state=str(out / "s.npz"))
 
 

@@ -1,8 +1,7 @@
 """The port end to end: its CLI (badslam_tpu_torch.main) against the JAX
 package's CLI on one TUM dataset, odometry-only and with sequential BA on,
-with the joint PCG solver, the refusal of what is not ported, the dataset
-loader, the import boundary, and the calibration that the front-end and the
-back-end share.
+with the joint PCG solver, the dataset loader, the import boundary, and
+the calibration that the front-end and the back-end share.
 
 Tolerances: exported poses agree per frame within 1e-4 m and 1e-4 rad, and
 the two runs' ATE RMSE against groundtruth.txt within 1e-4 m. With BA on,
@@ -272,16 +271,6 @@ def test_cli_ba_options_run(dataset, tmp_path, flags, map_gate):
   assert synthetic.surfel_map_error(pos)["median_abs_m"] < map_gate
   with open(timings) as f:
     assert "Bundle adjustment" in f.read()
-
-
-@pytest.mark.parametrize("flags", [
-    ["--prewarm"],
-])
-def test_unported_flags_are_refused(dataset, flags):
-  base = ["--max_num_ba_iterations_per_keyframe", "0", "--no_loop_detection",
-          "--sequential_ba"]
-  with pytest.raises(SystemExit, match="ROADMAP"):
-    port_main.main([dataset, "--device", "cpu", *base, *flags])
 
 
 def test_dataset_loader_matches_jax(dataset, tmp_path):
