@@ -49,6 +49,7 @@ from badslam_tpu_torch.loop.trajectory_deformation import (
     extrapolate_and_interpolate_keyframe_pose_changes,
     remember_keyframe_poses)
 from badslam_tpu_torch.utils import logging as log
+from badslam_tpu_torch.utils.timing import Timing
 from badslam_tpu_torch.utils.transfer import to_device
 
 NSS_ALPHA = 0.15                 # loop_detector.cc:161
@@ -187,23 +188,24 @@ class LoopDetector:
 
   def _extract(self, kf_slot: int, intensity: np.ndarray,
                depth: np.ndarray) -> KeyframeEntry:
-    gray = np.clip(intensity * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    keypoints, descriptors = self.orb.detectAndCompute(gray, None)
-    if descriptors is None or len(keypoints) == 0:
-      return KeyframeEntry(kf_slot, np.zeros((0, 2), np.float32),
-                           np.zeros((0,), np.float32),
-                           np.zeros((0, 32), np.uint8),
-                           np.zeros((32,), np.uint8))
-    pts = np.asarray([kp.pt for kp in keypoints], np.float32)
-    h, w = depth.shape
-    px = np.clip(pts[:, 0].astype(np.int32), 0, w - 1)
-    py = np.clip(pts[:, 1].astype(np.int32), 0, h - 1)
-    depths = depth[py, px].astype(np.float32)
-    # Majority-vote signature: bit b is set iff >= half the descriptors set
-    # it.
-    bits = np.unpackbits(descriptors, axis=1)
-    sig = np.packbits((bits.mean(axis=0) >= 0.5).astype(np.uint8))
-    return KeyframeEntry(kf_slot, pts, depths, descriptors, sig)
+    with Timing.time("Loop feature extraction"):
+      gray = np.clip(intensity * 255.0 + 0.5, 0, 255).astype(np.uint8)
+      keypoints, descriptors = self.orb.detectAndCompute(gray, None)
+      if descriptors is None or len(keypoints) == 0:
+        return KeyframeEntry(kf_slot, np.zeros((0, 2), np.float32),
+                             np.zeros((0,), np.float32),
+                             np.zeros((0, 32), np.uint8),
+                             np.zeros((32,), np.uint8))
+      pts = np.asarray([kp.pt for kp in keypoints], np.float32)
+      h, w = depth.shape
+      px = np.clip(pts[:, 0].astype(np.int32), 0, w - 1)
+      py = np.clip(pts[:, 1].astype(np.int32), 0, h - 1)
+      depths = depth[py, px].astype(np.float32)
+      # Majority-vote signature: bit b is set iff >= half the descriptors set
+      # it.
+      bits = np.unpackbits(descriptors, axis=1)
+      sig = np.packbits((bits.mean(axis=0) >= 0.5).astype(np.uint8))
+      return KeyframeEntry(kf_slot, pts, depths, descriptors, sig)
 
   # --- retrieval ---
 
@@ -259,15 +261,27 @@ class LoopDetector:
     return entry.bow
 
   def _detect(self, entry: KeyframeEntry) -> Tuple[Optional[int], int, list]:
-    """(matched database index or None, match count, matches)."""
+    """(matched database index or None, match count, matches). The query's
+    outcome is counted under "Loop query: <outcome>"."""
+    with Timing.time("Loop database query"):
+      matched, count, matches, outcome = self._query(entry)
+    Timing.count(f"Loop query: {outcome}")
+    return matched, count, matches
+
+  def _query(self, entry: KeyframeEntry
+             ) -> Tuple[Optional[int], int, list, str]:
+    """``_detect``'s result and the gate that ended the query, or "sent to
+    verification"."""
     self._maybe_train_vocabulary()
     usable = [
         (i, e) for i, e in enumerate(self.entries)
         if e is not None and len(e.descriptors) > 0
         and i < len(self.entries) - self.recent_exclude
     ]
-    if not usable or len(entry.descriptors) == 0:
-      return None, 0, []
+    if len(entry.descriptors) == 0:
+      return None, 0, [], "no features"
+    if not usable:
+      return None, 0, [], "no usable entry"
 
     # The normalizer: the temporally previous keyframe (DBoW2/DLoopDetector
     # normalized similarity score).
@@ -290,7 +304,7 @@ class LoopDetector:
       # blur, say) rejects the query instead of loosening the gate.
       if norm_score < 0.005:
         self._prev_cand_dbs = None
-        return None, 0, []
+        return None, 0, [], "low normalizer"
       eta = scores / max(norm_score, 1e-6)
       order = np.argsort(-eta)[:MAX_CANDIDATES]
       best_db = usable[order[0]][0] if len(order) else None
@@ -305,8 +319,10 @@ class LoopDetector:
           abs(c - p) <= 5 for c in cand_dbs for p in prev_cands)
       self._prev_cand_dbs = cand_dbs or (
           [best_db] if best_db is not None else [])
-      if not candidates or not consistent:
-        return None, 0, []
+      if not candidates:
+        return None, 0, [], "no candidate above NSS_ALPHA"
+      if not consistent:
+        return None, 0, [], "not consistent"
     else:
       # Small database: the 256-bit signature short-lists the candidates.
       sigs = np.stack([e.signature for _, e in usable])
@@ -315,7 +331,7 @@ class LoopDetector:
       norm_count = (self._match_count(entry, prev_entry)[0]
                     if prev_entry is not None else MIN_MATCH_COUNT)
       if norm_count < max(5, MIN_MATCH_COUNT // 4):
-        return None, 0, []
+        return None, 0, [], "low normalizer"
       candidates = [usable[oi] for oi in order]
 
     # Stage 2: exact descriptor matching on the short list.
@@ -326,11 +342,11 @@ class LoopDetector:
         best = (i, count, matches)
     matched, count, matches = best
     if matched is None or count < MIN_MATCH_COUNT:
-      return None, count, []
+      return None, count, [], "too few matches"
     if self.vocab is None:
       if count / norm_count < NSS_ALPHA:
-        return None, count, []
-    return matched, count, matches
+        return None, count, [], "below the NSS ratio"
+    return matched, count, matches, "sent to verification"
 
   def _match_count(self, a: KeyframeEntry, b: KeyframeEntry):
     if len(a.descriptors) == 0 or len(b.descriptors) == 0:
@@ -372,7 +388,7 @@ class LoopDetector:
     detection thread's result (:242-268); then verify and close on the
     calling thread."""
     if self._detection_thread is not None:
-      with self._det_cond:
+      with Timing.time("Loop result wait"), self._det_cond:
         while not self._det_results:
           self._det_cond.wait(timeout=1.0)
           if not self._det_results and not self._detection_thread.is_alive():
@@ -395,7 +411,10 @@ class LoopDetector:
     if matched_entry is None:
       # The matched keyframe was merged away between detection and closing.
       return None
-    event = self._verify_and_close(entry, matched_entry, matches, slam)
+    with Timing.time("Loop verification"):
+      event = self._verify_and_close(entry, matched_entry, matches, slam)
+    # The reason without its measured values, so that one gate is one tag.
+    Timing.count(f"Loop verification: {event.reason.split(' (')[0]}")
     self.events.append(event)
     if event.applied:
       self.num_loops_closed += 1

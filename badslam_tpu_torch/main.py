@@ -394,8 +394,7 @@ def _run_and_export(args, config, video, slam) -> int:
   t_start = time.perf_counter()
   frames_done = 0
   for frame_index in range(config.start_frame, end + 1):
-    with Timing.time("[BadSlam::ProcessFrame]"):
-      slam.process_frame(frame_index)
+    slam.process_frame(frame_index)
     slam.end_frame()
     video.frames[frame_index].clear_cache()
     frames_done += 1

@@ -17,7 +17,7 @@ two-hypothesis pick stays on the device (``torch.where``).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -268,6 +268,7 @@ def track_frame_pairwise(
     disable_reselection: bool = False,
     residual_type: str = "gradient_xy",
     transfer_free: bool = False,
+    gn_iterations: Optional[List[int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Coarse-to-fine tracking; returns (base_T_frame, residual_count), both
   on the device. With ``transfer_free`` the GN loops end without the host
@@ -275,7 +276,9 @@ def track_frame_pairwise(
   The pyramids hold *calibrated* depth, level 0 = full resolution.
   ``residual_count`` is the number of associated pixels in the finest
   scale's last GN iteration; the caller treats near-zero as a tracking
-  failure."""
+  failure. Where ``gn_iterations`` is given, each scale appends the number
+  of H/b evaluations its GN loop launched (the host counts them; the
+  initial-estimate cost evaluations are not among them)."""
   num_scales = len(base_pyramid)
   finest = 0 if use_pyramid_level_0 else 1
   estimate = base_T_frame_initial_1
@@ -323,7 +326,9 @@ def track_frame_pairwise(
       # at the first poll that sees the flag (utils/transfer.py).
       poll = DonePoll(estimate.device)
       done = torch.zeros((), dtype=torch.bool, device=estimate.device)
+    launched = 0
     for _ in range(max_iterations_per_scale):
+      launched += 1
       H, b, n = frame_to_frame_h_b(
           se3.inverse(estimate), base_l, tracked_l, cam_s, baseline_fx,
           threshold_factor, use_depth_residuals, use_descriptor_residuals,
@@ -345,5 +350,7 @@ def track_frame_pairwise(
       done = done | converged
       if poll.done(done):
         break
+    if gn_iterations is not None:
+      gn_iterations.append(launched)
 
   return estimate, residual_count

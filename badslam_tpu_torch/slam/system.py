@@ -258,8 +258,9 @@ class BadSlam:
 
     # Parallel-BA state, guarded by _ba_lock: the keyframe queue (processed
     # frame, frame index, pose relative to the previous keyframe, detection
-    # images, edge weight), the iteration requests, the watchdog's merge
-    # request, and the newest main-stream event the BA stream must wait on.
+    # images, edge weight, host time queued), the iteration requests, the
+    # watchdog's merge request, and the newest main-stream event the BA
+    # stream must wait on.
     self._queued_keyframes: List[tuple] = []
     self._parallel_iteration_queue: List[dict] = []
     self._merge_requested = False
@@ -314,13 +315,14 @@ class BadSlam:
     """ProcessFrame (bad_slam.cc:170-279). Under parallel BA on a GPU the
     frame runs on the high-priority stream, ordered after the caller's
     stream's earlier work and before its later work."""
-    if self._main_stream is None:
-      return self._process_frame(frame_index, force_keyframe)
-    caller = torch.cuda.current_stream(self.device)
-    self._main_stream.wait_stream(caller)
-    with torch.cuda.stream(self._main_stream):
-      self._process_frame(frame_index, force_keyframe)
-    caller.wait_stream(self._main_stream)
+    with Timing.time("[BadSlam::ProcessFrame]"):
+      if self._main_stream is None:
+        return self._process_frame(frame_index, force_keyframe)
+      caller = torch.cuda.current_stream(self.device)
+      self._main_stream.wait_stream(caller)
+      with torch.cuda.stream(self._main_stream):
+        self._process_frame(frame_index, force_keyframe)
+      caller.wait_stream(self._main_stream)
 
   def _process_frame(self, frame_index: int, force_keyframe: bool):
     if self._pipelined:
@@ -747,10 +749,12 @@ class BadSlam:
     w, h = calibration.depth_size
 
     base = self.base_kf_images
+    gn_iterations: List[int] = []
     base_T_frame, n_resid = self._track_pairwise(
         calibration, base.depth, base.normals, base.intensity,
         processed.raw_depth, processed.normals, processed.intensity, est1,
-        est2)
+        est2, gn_iterations=gn_iterations)
+    Timing.count("Odometry GN iterations", sum(gn_iterations))
     # Per-frame host reads, as in the reference: renormalize the result
     # (it feeds the motion model) and read the residual count.
     base_T_frame = se3_np.orthonormalize(base_T_frame.cpu().numpy())
@@ -787,13 +791,15 @@ class BadSlam:
   def _track_pairwise(self, calib: DepthCalibration, base_depth,
                       base_normals, base_intensity, tracked_depth,
                       tracked_normals, tracked_intensity,
-                      est1, est2, transfer_free: bool = False
+                      est1, est2, transfer_free: bool = False,
+                      gn_iterations: Optional[List[int]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Calibrate both depth images with ``calib``, build both pyramids and
     track coarse-to-fine from two initial base_T_tracked estimates (the
     compute core of RunOdometry, bad_slam.cc:827-951). Returns
     (base_T_tracked, residual count), both on the device; with
-    ``transfer_free`` the GN loops end without the host waiting."""
+    ``transfer_free`` the GN loops end without the host waiting;
+    ``gn_iterations`` gets the H/b evaluations of each scale."""
     cfg = self.config
     residual_type = "gradient_xy"
     if cfg.use_gradmag_for_tracking:
@@ -818,7 +824,8 @@ class BadSlam:
         use_descriptor_residuals=cfg.use_photometric_residuals,
         use_pyramid_level_0=True,
         convergence_threshold=cfg.odometry_convergence_threshold,
-        residual_type=residual_type, transfer_free=transfer_free)
+        residual_type=residual_type, transfer_free=transfer_free,
+        gn_iterations=gn_iterations)
 
   def track_keyframe_pair(self, base_slot: int, tracked_slot: int,
                           base_T_tracked_init: np.ndarray) -> np.ndarray:
@@ -967,7 +974,7 @@ class BadSlam:
       with self._ba_condition:
         self._queued_keyframes.append(
             (processed, frame_index, last_kf_T_this, detection_images,
-             edge_weight))
+             edge_weight, time.perf_counter()))
         keyframes_added = (len(self._queued_keyframes)
                            + self.direct_ba.keyframe_count)
         self.base_kf_index = None   # set when the BA thread registers it
@@ -1037,10 +1044,13 @@ class BadSlam:
     """Register the queued keyframes, each at the pose of the last
     registered keyframe (which BA may have moved) times its relative pose.
     Called with _ba_lock held; releases it around each registration, whose
-    loop closing takes it."""
+    loop closing takes it. A keyframe's time in the queue, from
+    ``create_keyframe`` to here, is the span "Keyframe hand-off wait"."""
     while self._queued_keyframes:
       (processed, frame_index, last_kf_T_this, detection_images,
-       edge_weight) = self._queued_keyframes.pop(0)
+       edge_weight, queued_at) = self._queued_keyframes.pop(0)
+      Timing.add_time("Keyframe hand-off wait",
+                      time.perf_counter() - queued_at)
       ba = self.direct_ba
       if ba.keyframe_count > 0:
         last_pose = ba.kf.global_T_frame[ba.keyframe_count - 1]
@@ -1247,12 +1257,13 @@ class BadSlam:
           self._tracking_failed_since_kf = True
         base = self.base_kf_images
         w, h = calibration.depth_size
+        gn_iterations: List[int] = []
 
         def track(est1, est2):
           return self._track_pairwise(
               calibration, base.depth, base.normals, base.intensity,
               processed.raw_depth, processed.normals, processed.intensity,
-              est1, est2, transfer_free=True)
+              est1, est2, transfer_free=True, gn_iterations=gn_iterations)
 
         pl = self.pipelined_state
         pl.hist, pl.fail_acc = pipelined.track_frame(
@@ -1262,6 +1273,7 @@ class BadSlam:
             max_speed=float(cfg.max_translation_per_frame))
         pl.hist_n = min(3, pl.hist_n + 1)
         pl.traj_slot[frame_index] = pl.base_slot
+        Timing.count("Odometry GN iterations", sum(gn_iterations))
       # Fault-injection seam: the device state between tracking and the
       # keyframe.
       self._after_pipelined_tracking(frame_index)

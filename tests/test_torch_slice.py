@@ -29,6 +29,7 @@ from badslam_tpu_torch.geometry import se3
 from badslam_tpu_torch.io import ply
 from badslam_tpu_torch.io.dataset import read_tum_trajectory
 from badslam_tpu_torch.utils import synthetic, tum_synth
+from badslam_tpu_torch.utils.timing import Timing
 
 torch.set_num_threads(2)
 
@@ -129,6 +130,9 @@ def test_cli_with_joint_pcg_and_self_calibration_matches_jax(dataset,
   """--use_pcg --optimize_intrinsics through both CLIs: a keyframe on every
   frame, 11 frames, so the intrinsics unknowns join the PCG vector at the
   tenth and eleventh keyframe."""
+  # The port's export holds every span this process recorded: start empty,
+  # so that it shows this run's phases alone, whatever ran before it here.
+  Timing.reset()
   out = {}
   for name, main, device in (("port", port_main.main, ["--device", "cpu"]),
                              ("jax", jax_main.main, [])):

@@ -55,7 +55,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import dataclasses
 import os
 import statistics
@@ -114,24 +113,6 @@ def is_launch(event) -> bool:
 
 def is_device(event) -> bool:
   return event.device_type == torch.autograd.DeviceType.CUDA
-
-
-@contextlib.contextmanager
-def phases_as_profiler_spans():
-  """While active, every ``Timing.time(tag)`` scope is also a
-  ``torch.profiler.record_function(tag)`` span."""
-  original = Timing.time
-
-  @contextlib.contextmanager
-  def traced(tag):
-    with torch.profiler.record_function(tag), original(tag):
-      yield
-
-  Timing.time = traced
-  try:
-    yield
-  finally:
-    Timing.time = original
 
 
 def profile_ba(args) -> int:
@@ -216,18 +197,15 @@ def profile_ba(args) -> int:
   if cuda:
     activities.append(torch.profiler.ProfilerActivity.CUDA)
     torch.cuda.synchronize()
-  with phases_as_profiler_spans(), \
-      torch.profiler.profile(activities=activities) as prof:
+  # Every Timing span is a profiler range while the profiler runs.
+  with torch.profiler.profile(activities=activities) as prof:
     t0 = time.perf_counter()
     p_iterations, _ = run(target)
     wall_ms = (time.perf_counter() - t0) * 1e3
   Timing.set_device_accurate(False)
   events = prof.events()
   launches = [e for e in events if is_launch(e)]
-  # The profiler mirrors every span onto the device's timeline under the
-  # span's name; those are not device work.
-  device = [e for e in events
-            if is_device(e) and e.name not in stats] if cuda else []
+  device = [e for e in events if is_device(e)] if cuda else []
   reads = [e for e in device if "Memcpy DtoH" in e.name]
   print(f"profiled BA call: {p_iterations} iterations, wall {wall_ms!r} ms")
   print(f"per BA iteration (end tasks included): "
