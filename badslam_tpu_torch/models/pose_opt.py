@@ -9,6 +9,17 @@ iterations; each accumulates a 6x6 H and a 6-vector b over all surfels
 The H/b reduction and the 6x6 solve run on the device; each GN iteration
 reads one convergence flag back to the host to end the loop.
 
+``estimate_frame_poses_batched`` solves every keyframe of a BA iteration in
+one loop over all keyframes (the lanes), as the JAX package's shared
+``lax.while_loop`` does. On a CUDA device each step is two launches of the
+hand-written kernels of ``csrc/pose_h_b.cu`` (every open lane's H/b, then
+every open lane's solve and update) and one host read; for CPU tensors the
+kernels' plain versions (``accumulate_lanes_h_b_plain``,
+``step_lanes_plain``) run, which the tests hold against the JAX package.
+It records two ``Timing`` counters per call: "BA pose GN steps" (shared
+steps launched) and "BA pose lane steps" (the lanes open at each step,
+summed), whose ratio is the mean number of lanes a launch serves.
+
 With the surfel store sharded over a mesh (``parallel/spmd.py``), ``axis``
 names the mesh axis of the surfel shards: each shard accumulates its partial
 H/b, the partials are summed over the axis (``psum``) and every shard makes
@@ -27,7 +38,9 @@ from badslam_tpu_torch.geometry.camera import (DepthToColorTransform,
 from badslam_tpu_torch.models import association, cost
 from badslam_tpu_torch.models.calibration import DepthCalibration
 from badslam_tpu_torch.models.surfels import SurfelStore
+from badslam_tpu_torch.ops import pose_h_b
 from badslam_tpu_torch.parallel import spmd
+from badslam_tpu_torch.utils.timing import Timing
 from badslam_tpu_torch.utils.transfer import DonePoll
 
 _TRANSLATION_CONVERGENCE_THRESHOLD = 1e-6
@@ -145,40 +158,79 @@ def estimate_frame_pose(
     use_depth_residuals: bool = True,
     use_descriptor_residuals: bool = True,
     max_iterations: int = 30,
-    transfer_free: bool = False,
-    axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, bool]:
-  """Returns (global_T_frame_estimate, converged). The loop ends on the
-  host, so each iteration reads the convergence flag from the device. With
-  ``transfer_free`` the flag stays on the device and the pose holds once it
-  is set (utils/transfer.py); ``converged`` is then not known and returned
-  as False. ``axis``: the mesh axis the surfels are sharded over (see the
-  module's docstring)."""
+  """Returns (global_T_frame_estimate, converged): one keyframe's GN loop,
+  which ends on the host, so each iteration reads the convergence flag
+  from the device. ``estimate_frame_poses_batched`` gives each of its lanes
+  these steps."""
   T = global_T_frame_init
   converged = False
-  if transfer_free:
-    poll = DonePoll(T.device, axis)
-    done = torch.zeros((), dtype=torch.bool, device=T.device)
   for _ in range(max_iterations):
     H, b, _, _ = accumulate_pose_h_b(
         T, surfels, kf_depth, kf_normals, kf_intensity, depth_cam,
         color_cam, dp, use_depth_residuals, use_descriptor_residuals)
-    if axis is not None:
-      H, b = spmd.psum((H, b), axis)
     x = solve_6x6(H, b)
     # A singular H (no associations) must not poison the pose.
     x = torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
-    if transfer_free:
-      T = torch.where(done, T, T @ se3.exp(-x))
-      done = done | is_scale1_converged(x)
-      if poll.done(done):
-        break
-      continue
     T = T @ se3.exp(-x)
     converged = bool(is_scale1_converged(x))
     if converged:
       break
   return T, converged
+
+
+def accumulate_lanes_h_b_plain(
+    T: torch.Tensor, done: torch.Tensor, lanes: Sequence[int],
+    surfels: SurfelStore, kf_depth: torch.Tensor, kf_normals: torch.Tensor,
+    kf_intensity: torch.Tensor, depth_cam: PinholeCamera,
+    color_cam: PinholeCamera, dp: DepthCalibration,
+    use_depth_residuals: bool, use_descriptor_residuals: bool,
+    out: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> None:
+  """The plain version of ``pose_h_b.accumulate``: ``accumulate_pose_h_b``
+  of each of ``lanes`` (host ints) that ``done`` (K,) leaves open, at its
+  pose in ``T`` (K, 4, 4), written into ``out`` = (H (K, 6, 6), b (K, 6),
+  residual count (K,)); the rows of done lanes are left as they were.
+  Reads nothing on the host: a done lane among ``lanes`` is computed and
+  its result dropped."""
+  H, b, count = out
+  for k in lanes:
+    Hk, bk, _, nk = accumulate_pose_h_b(
+        T[k], surfels, kf_depth[k], kf_normals[k], kf_intensity[k],
+        depth_cam, color_cam, dp, use_depth_residuals,
+        use_descriptor_residuals, compute_cost=True)
+    H[k] = torch.where(done[k], H[k], Hk)
+    b[k] = torch.where(done[k], b[k], bk)
+    count[k] = torch.where(done[k], count[k], nk)
+
+
+def step_lanes_plain(T: torch.Tensor, done: torch.Tensor, H: torch.Tensor,
+                     b: torch.Tensor, state: torch.Tensor,
+                     all_done: torch.Tensor, lanes: Sequence[int]) -> None:
+  """The plain version of ``pose_h_b.step``: the step of
+  ``estimate_frame_pose`` (solve, finite guard, ``T <- T * exp(-x)``) of
+  each of ``lanes`` (host ints) that ``done`` leaves open, in place on
+  ``T``; a lane that converges is marked done after its step. ``state``
+  (2,) becomes (lanes open after the step, lane steps so far), ``all_done``
+  whether no lane is open. Reads nothing on the host."""
+  open_before = torch.sum(~done)
+  for k in lanes:
+    x = solve_6x6(H[k], b[k])
+    x = torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
+    T[k] = torch.where(done[k], T[k], T[k] @ se3.exp(-x))
+    done[k] = done[k] | is_scale1_converged(x)
+  state[0] = torch.sum(~done)
+  state[1] += open_before
+  all_done.copy_(done.all())
+
+
+def _intrinsics(cam: PinholeCamera, device: torch.device) -> torch.Tensor:
+  """(fx, fy, cx, cy) of a camera as one (4,) float32 tensor on ``device``,
+  made on the device (a Python float is filled in, not copied from the
+  host)."""
+  return torch.stack([
+      v.to(device, torch.float32).reshape(()) if isinstance(v, torch.Tensor)
+      else torch.full((), float(v), dtype=torch.float32, device=device)
+      for v in (cam.fx, cam.fy, cam.cx, cam.cy)])
 
 
 def estimate_frame_poses_batched(
@@ -201,26 +253,88 @@ def estimate_frame_poses_batched(
   """Frame-to-model pose GN of every keyframe in ``optimize_mask``.
 
   Within one alternation step the surfel map is fixed, so the keyframes'
-  pose problems are independent. The reference runs them as lanes of one
-  shared loop in which a lane's converging step is applied before the lane
-  freezes; one GN loop per keyframe with the same cap gives the same poses
-  and bounds the temporaries to one keyframe times the surfel capacity.
+  pose problems are independent. As in the reference, they are the lanes of
+  one shared loop: each step accumulates the H/b of every open lane, solves
+  and updates every open lane, and freezes a lane after the step that
+  converged it. The loop ends when no lane is open, read once per step, or
+  after ``max_iterations`` steps; a lane's steps are those of
+  ``estimate_frame_pose`` with the same cap. On a CUDA device each step is
+  two kernel launches (``ops/pose_h_b.py``), which keep no temporaries of
+  size keyframes x surfels; for CPU tensors the kernels' plain versions
+  run, one keyframe at a time, over the lanes the host last read open.
 
   ``slots`` are the indices of ``optimize_mask`` as host ints, for a caller
-  that has them; otherwise the mask is read back once. ``transfer_free``
-  and ``axis`` as in ``estimate_frame_pose``.
+  that has them (none means no step); otherwise the CPU path reads the mask
+  back once. ``transfer_free``: the flag is polled (``DonePoll``) instead
+  of read, and the lanes hold still once done, so the steps that run past
+  convergence change nothing; the CPU path then computes every slot at
+  every step and keeps the open lanes' results, and "BA pose lane steps"
+  is not recorded, since no count is read. ``axis``: each shard's H/b
+  are summed over the mesh axis before the step, which every shard makes
+  alike; the counters are recorded by the axis' first shard.
 
   Returns (global_T_frame (K, 4, 4), moved (K,) bool). ``moved`` is the
   reference's frame_moved = !IsScale1PoseEstimationConverged(diff.log()) on
   the total pose change (direct_ba_alternating.cc:564-566)."""
-  if slots is None:
+  dev = global_T_frame_init.device
+  cuda = dev.type == "cuda"
+  k = global_T_frame_init.shape[0]
+  T = global_T_frame_init.clone(memory_format=torch.contiguous_format)
+  steps = lane_steps = 0
+  if not cuda and slots is None:
     slots = torch.nonzero(optimize_mask).flatten().tolist()
-  T = global_T_frame_init.clone()
-  for k in slots:
-    T[k], _ = estimate_frame_pose(
-        global_T_frame_init[k], surfels, kf_depth[k], kf_normals[k],
-        kf_intensity[k], depth_cam, color_cam, dp, use_depth_residuals,
-        use_descriptor_residuals, max_iterations, transfer_free, axis)
+  if slots is None or len(slots):
+    lanes = slots
+    done = ~optimize_mask.to(dev)
+    out = (torch.zeros((k, 6, 6), dtype=torch.float32, device=dev),
+           torch.zeros((k, 6), dtype=torch.float32, device=dev),
+           torch.zeros((k,), dtype=torch.int32, device=dev))
+    state = torch.zeros((2,), dtype=torch.int32, device=dev)
+    all_done = torch.zeros((), dtype=torch.bool, device=dev)
+    if cuda:
+      surfels = surfels._replace(
+          count=surfels.count.to(dev, non_blocking=True),
+          **{name: getattr(surfels, name).contiguous()
+             for name in ("pos", "normal", "radius_sq", "desc", "valid")})
+      kf_depth, kf_normals, kf_intensity = (
+          x.contiguous() for x in (kf_depth, kf_normals, kf_intensity))
+      intrinsics = (_intrinsics(depth_cam, dev), _intrinsics(color_cam, dev))
+      partials = torch.empty(
+          (pose_h_b.blocks(surfels.capacity, dev), k, pose_h_b.SUMS),
+          dtype=torch.float32, device=dev)
+      ticket = torch.zeros((), dtype=torch.int32, device=dev)
+    poll = DonePoll(dev, axis) if transfer_free else None
+    for _ in range(max_iterations):
+      if cuda:
+        pose_h_b.accumulate(
+            T, done, surfels, kf_depth, kf_normals, kf_intensity,
+            *intrinsics, (color_cam.width, color_cam.height), dp,
+            use_depth_residuals, use_descriptor_residuals, out, partials,
+            ticket)
+      else:
+        accumulate_lanes_h_b_plain(
+            T, done, lanes, surfels, kf_depth, kf_normals, kf_intensity,
+            depth_cam, color_cam, dp, use_depth_residuals,
+            use_descriptor_residuals, out)
+      H, b, _ = out if axis is None else spmd.psum(out, axis)
+      if cuda:
+        pose_h_b.step(T, done, H, b, state, all_done)
+      else:
+        step_lanes_plain(T, done, H, b, state, all_done, lanes)
+      steps += 1
+      if transfer_free:
+        if poll.done(all_done):
+          break
+        continue
+      still_open, lane_steps = state.tolist()
+      if still_open == 0:
+        break
+      if not cuda:
+        lanes = torch.nonzero(~done).flatten().tolist()
+    if axis is None or spmd.axis_index(axis) == 0:
+      Timing.count("BA pose GN steps", steps)
+      if not transfer_free:
+        Timing.count("BA pose lane steps", lane_steps)
   diff = se3.inverse(global_T_frame_init) @ T
   moved = optimize_mask & ~is_scale1_converged(se3.log(diff))
   return T, moved

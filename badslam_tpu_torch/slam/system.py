@@ -487,10 +487,11 @@ class BadSlam:
     throwaway system has its own calibration and draws from no generator
     of this one. The warm frames' ``Timing`` spans are kept apart from the
     run's. ``last_prewarm_breakdown`` maps each stage to its seconds; where
-    the fused preprocess kernel's library was loaded inside the prewarm,
-    ``kernel_load_fused_preprocess`` holds the load's seconds and
-    ``kernel_nvcc_fused_preprocess`` the build's (0.0: it was built
-    already). A build or load that fails fails the prewarm.
+    a kernel library was loaded inside the prewarm,
+    ``kernel_load_<name>`` holds the load's seconds and
+    ``kernel_nvcc_<name>`` the build's (0.0: it was built already), for
+    ``fused_preprocess`` and ``pose_h_b``. A build or load that fails
+    fails the prewarm.
     """
     import dataclasses
     from badslam_tpu_torch.utils import synthetic, tum_synth
@@ -511,12 +512,13 @@ class BadSlam:
 
     if self.device.type == "cuda":
       from badslam_tpu_torch.kernels import build
-      from badslam_tpu_torch.ops import fused_preprocess
-      if "fused_preprocess" not in build.build_info:
-        with stage("kernel_load_fused_preprocess"):
-          fused_preprocess.load_kernel()
-        breakdown["kernel_nvcc_fused_preprocess"] = (
-            build.build_info["fused_preprocess"][0])
+      from badslam_tpu_torch.ops import fused_preprocess, pose_h_b
+      for name, module in (("fused_preprocess", fused_preprocess),
+                           ("pose_h_b", pose_h_b)):
+        if name not in build.build_info:
+          with stage(f"kernel_load_{name}"):
+            module.load_kernel()
+          breakdown[f"kernel_nvcc_{name}"] = build.build_info[name][0]
 
     cfg = dataclasses.replace(
         self.config, enable_loop_detection=False, parallel_ba=False,

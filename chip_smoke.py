@@ -28,13 +28,16 @@ Phases (any failure exits non-zero and prints no result line):
   6. print warm frames/s, per-phase ms and peak device memory;
   7. run the CLI with sequential BA on (the reference's defaults: keyframe
      every 10 frames, 10 BA iterations per keyframe, sparsification 4,
-     min_observation_count 1/2/3), the launch count reset just before, the
+     min_observation_count 1/2/3), the launch counts reset just before, the
      host mirrors verified after every BA call, and check: rc 0, one launch
      per frame, finite poses, ATE RMSE <= 2.77 mm, 6 keyframes, live
      surfels > 0, every BA call ran >= 1 iteration, the exported PLY has as
      many points as live surfels, all finite, and their median |error|
-     against the heightmap is < 1e-3 m; print frames/s, per-phase ms, BA
-     iterations per call, store sizes and peak device memory;
+     against the heightmap is < 1e-3 m, and one launch of each pose_h_b
+     kernel (csrc/pose_h_b.cu, built on its first use) per shared pose GN
+     step ("BA pose GN steps"); print frames/s, per-phase ms, BA
+     iterations per call, the pose steps and lanes a launch, store sizes
+     and peak device memory;
   8. run bundle adjustment twice from one map state and check that poses
      and surfel stores are bitwise equal; once with the alternating scheme
      and once with ``use_pcg`` and both intrinsics flags on (the calibration
@@ -215,9 +218,25 @@ Phases (any failure exits non-zero and prints no result line):
      phase 2's nvcc seconds; then 21 frames of the pipelined front-end in
      process, prewarm(max_ba_keyframes=3) outside
      torch.cuda.set_sync_debug_mode("error") and every frame inside it,
-     with the ATE gate.
+     with the ATE gate;
+ 37. the pose_h_b kernels on phase 7's map and keyframes (640x480, every
+     keyframe a lane, all but the first moved by a seeded 2 mm / 1 mrad)
+     against their plain versions in models/pose_opt.py, for both residual
+     kinds and each alone: the accumulate kernel over every lane gives
+     each lane's residual count of accumulate_pose_h_b, and over one lane's
+     surfels off their tap cells' edges H and b within 5e-5 of the
+     magnitude of their summands (tests/test_torch_ba_models.py's
+     tolerance); the step kernel on the plain H and b gives
+     step_lanes_plain's poses within 1e-6 and the same lane states; the
+     whole shared pose GN on the card gives each lane's
+     estimate_frame_pose within 1e-5, the same ``moved``, and one launch
+     of each kernel per step; then, in turns (plain, kernel, kernel,
+     plain), each kernel's device time per launch (from a CUDA graph), one
+     wrapper call and its plain version, and each kernel's bound (bytes
+     over the memory rate against float32 operations over the peak, the
+     pairs counted from the data).
 Every phase prints its wall seconds, and the script the total before the
-kernels' line. Phase 36 runs right after 7. Phases 29-31, then 17-22,
+kernels' line. Phases 37 and 36 run right after 7. Phases 29-31, then 17-22,
 24-26, 28 and 32-35 run after 14, on its dataset, and before 15; 27 runs
 last, before 23. Phase 29 comes before every other
 torch.profiler session of the process: once one has run, the next
@@ -225,7 +244,8 @@ session can lose its first kernel record (torch 2.11: phase 29's trace
 lacked one of its 21 preprocess launches when it ran after 25-27), which a
 CLI run, one session per process, never meets.
 
-The next-to-last line is the kernels' JSON summary; the last line is
+The next-to-last line is the kernels' JSON summary (fused_depth_preprocess,
+then the two pose_h_b kernels with phase 7's launches); the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA device and no network.
 """
 
@@ -331,6 +351,58 @@ OPS_PER_CENTER_PIXEL = (3 + 30 + 38 + 9 + 5 + 2 + 62
 # Special-function results: one per tap and per valid pixel, and per center
 # pixel 4 divisions, 2 reciprocals, one expf and one square root.
 SFU_PER_CENTER_PIXEL = 8
+# float32 operations of pose_h_b_accumulate_kernel (csrc/pose_h_b.cu),
+# counted from its source as above, per (surfel, open lane) pair by how far
+# the pair gets; each pair is counted only for the code it must have run,
+# so the sum is a lower bound:
+#   every valid surfel of an open lane: the transform (a rotation of 3
+#     products and 6 FMA, then 3 additions)                              18
+#   in front of the camera: px, py (a division, a product, a sum each)   26
+#   on a pixel with a measured depth: its reciprocal, the calibration
+#     (3, expf, reciprocal), the normal's rotation (15), nx, ny (4), the
+#     stddev's denominator (7), its division, the threshold (reciprocal,
+#     1), the depth difference (1), the view dot product (5)             76
+#   associated: the measured normal's z (4, square root), its dot (5)    16
+#   the depth term: u (2), r (9), J (15), the Tukey weight (4), J w (6),
+#     H's upper triangle (21 FMA), b (6 FMA), the count (1)              91
+#   the descriptor terms, where the pixel lies in the color image: the
+#     color pixel (4), two tangents (2 crosses, 2 x (5, division, square
+#     root, 1), 6 scalings), two points (6) and their transforms (36) and
+#     projections (4 x (division, 2)), 3 bilinear samples with gradients
+#     (25 each), 2 residuals (3 each), 2 gradient scalings (6 each), 2
+#     Jacobians (reciprocal, 25 each), 2 weights (1 each), 2 terms into H
+#     and b (60 each), the count (1)                                    448
+POSE_OPS_TESTED, POSE_OPS_FRONT = 18, 2 * (2 + OPS_DIV)
+POSE_OPS_MEASURED = 36 + OPS_DIV + 3 * OPS_RCP + OPS_EXP
+POSE_OPS_ASSOCIATED = 9 + OPS_SQRT
+POSE_OPS_DEPTH_TERM = 91
+POSE_OPS_DESCRIPTOR_TERMS = (356 + 2 * (OPS_DIV + OPS_SQRT) + 4 * OPS_DIV
+                             + 2 * OPS_RCP)
+# pose_h_b_step_kernel per open lane, the same way: the Jacobi scaling (6
+# reciprocal square roots, 72 products, 6), the 6x6 LU (125, 6
+# reciprocals), three triangular solves (60 and 6 divisions each), two
+# refinement steps (84 each), the unscaling (6), se3.exp without its sinf
+# and cosf (the small-angle branch, 158), the pose product (84) and the
+# convergence test (18).
+POSE_STEP_OPS_PER_LANE = (6 * (OPS_SQRT + OPS_RCP) + 72 + 6 + 125
+                          + 6 * OPS_RCP + 3 * (60 + 6 * OPS_DIV) + 2 * 84
+                          + 6 + 158 + 84 + 18)
+# Bytes a surfel (position, normal, squared radius, descriptor) and its
+# valid flag; per pair a depth and a cfactor value, a normal (2 floats) and
+# the 12 intensity taps of the 3 samples.
+POSE_SURFEL_BYTES, POSE_VALID_BYTES = 36, 1
+# The seeded perturbation of phase 37's keyframe poses (the tests' 2 mm /
+# 1 mrad) and its seed.
+POSE_PERTURBATION = (2e-3, 1e-3)
+POSE_SEED = 37
+# Tolerances of phase 37: H and b against the plain version on the surfels
+# off their tap cells' edges, as a share of the magnitude of their summands
+# (tests/test_torch_ba_models.py's; up to 1.1e-5 measured there); the step
+# alone and the whole pose GN against their plain versions (m and unitless
+# rotation entries).
+POSE_H_B_TOLERANCE = 5e-5
+POSE_STEP_TOLERANCE = 1e-6
+POSE_LOOP_TOLERANCE = 1e-5
 
 def fail(msg: str) -> None:
   print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -515,14 +587,16 @@ def write_dataset(workdir: str) -> str:
 
 def run_cli(argv, label: str, launches_expected: int = FRAMES,
             mesh=None) -> dict:
-  """One run of the port's CLI with the kernel's launch count set to 0 just
-  before and read just after; its standard output is echoed. ``slam`` in
+  """One run of the port's CLI with the kernels' launch counts set to 0 just
+  before and read just after (``pose_launches``: the pose_h_b accumulate
+  and step launches); its standard output is echoed. ``slam`` in
   the result is the system the CLI built (it holds device memory: drop it
   before the next run's peak is measured). ``mesh``: the system is built
   over it (a virtual mesh over one card, which the CLI does not offer)."""
   import torch
   from badslam_tpu_torch import main as port_main
   from badslam_tpu_torch.ops import fused_preprocess as fp
+  from badslam_tpu_torch.ops import pose_h_b
   from badslam_tpu_torch.slam import system
   from badslam_tpu_torch.utils.timing import Timing
   built = []
@@ -552,12 +626,14 @@ def run_cli(argv, label: str, launches_expected: int = FRAMES,
   out = io.StringIO()
   system.BadSlam = recording_bad_slam
   fp.fused_depth_preprocess.launches = 0
+  pose_h_b.accumulate.launches = pose_h_b.step.launches = 0
   try:
     with contextlib.redirect_stdout(out):
       rc = port_main.main(argv)
   finally:
     system.BadSlam = original
   launches = fp.fused_depth_preprocess.launches
+  pose_launches = (pose_h_b.accumulate.launches, pose_h_b.step.launches)
   peak = torch.cuda.max_memory_allocated()
   print(out.getvalue().rstrip(), flush=True)
   if rc != 0:
@@ -565,8 +641,9 @@ def run_cli(argv, label: str, launches_expected: int = FRAMES,
   if launches != launches_expected:
     fail(f"{label}: fused_depth_preprocess launched {launches} times, "
          f"expected {launches_expected}")
-  return {"launches": launches, "peak": peak, "stdout": out.getvalue(),
-          "stats": Timing.stats(), "slam": built[-1]}
+  return {"launches": launches, "pose_launches": pose_launches,
+          "peak": peak, "stdout": out.getvalue(), "stats": Timing.stats(),
+          "slam": built[-1]}
 
 
 def check_trajectory(poses_path: str, data: str, label: str) -> float:
@@ -742,6 +819,16 @@ def run_ba_path(workdir: str, data: str, odometry_ate: float) -> dict:
       or min(iterations) < 1):
     fail(f"{label}: {calls} BA calls, iterations per call {iterations}")
   print_ba_run(run, label, iterations, BA_PHASES)
+  steps = stats.get("BA pose GN steps")
+  lane_steps = int(sum(stats["BA pose lane steps"].samples)) if steps else 0
+  phases, steps = (steps.count, int(sum(steps.samples))) if steps else (0, 0)
+  print(f"{label}: pose_h_b launches (accumulate, step) "
+        f"{run['pose_launches']}; {steps} shared GN steps in {phases} pose "
+        f"phases, {lane_steps} lane steps "
+        f"({lane_steps / max(steps, 1)!r} lanes a launch)")
+  if steps < 1 or run["pose_launches"] != (steps, steps):
+    fail(f"{label}: pose_h_b launched {run['pose_launches']} times for "
+         f"{steps} shared GN steps")
   ba_ms = sum(stats["Bundle adjustment"].samples) * 1e3
   print(f"{label}: {ba_ms / sum(iterations)!r} ms per BA iteration (end "
         f"tasks included); host mirrors verified after each of {calls} BA "
@@ -751,7 +838,285 @@ def run_ba_path(workdir: str, data: str, odometry_ate: float) -> dict:
   return {"launches": run["launches"], "frames_per_s": warm_frames_per_s(run),
           "surfels": checked["surfels"], "peak": run["peak"],
           "ms_per_iteration": ba_ms / sum(iterations),
-          "poses": poses_path}
+          "poses": poses_path, "pose_launches": run["pose_launches"],
+          "ba": run["slam"].direct_ba}
+
+
+def pose_accumulate(kf, cams, T, done, surfels, use_depth: bool,
+                    use_desc: bool, out, scratch) -> None:
+  """One launch of pose_h_b_accumulate_kernel over the lanes ``done``
+  leaves open; ``cams`` = (depth camera, color camera, calibration),
+  ``scratch`` = (partials, ticket)."""
+  from badslam_tpu_torch.models import pose_opt
+  from badslam_tpu_torch.ops import pose_h_b
+  depth_cam, color_cam, dp = cams
+  dev = T.device
+  pose_h_b.accumulate(
+      T, done, surfels, kf.depth, kf.normals, kf.intensity,
+      pose_opt._intrinsics(depth_cam, dev),
+      pose_opt._intrinsics(color_cam, dev),
+      (color_cam.width, color_cam.height), dp, use_depth, use_desc, out,
+      *scratch)
+
+
+def pose_h_b_bound(kf, cams, T, done, surfels) -> dict:
+  """The least time an H100 could take for one pose_h_b_accumulate_kernel
+  launch (both residual kinds) over the lanes ``done`` leaves open at the
+  poses ``T``: the larger of its bytes over the memory rate and its float32
+  operations over the float32 peak. The pairs are counted from the data as
+  far as the kernel takes each (the POSE_OPS_* constants); the surfels
+  under the watermark are read once, and a lane's depth, cfactor, normal
+  and intensity values once per pair that needs them, at most the lane's
+  whole image."""
+  import torch
+  from badslam_tpu_torch.geometry import se3
+  from badslam_tpu_torch.geometry.camera import DepthToColorTransform
+  from badslam_tpu_torch.models import association
+  depth_cam, color_cam, dp = cams
+  h, w = kf.depth.shape[1:]
+  hi, wi = kf.intensity.shape[1:]
+  count = int(surfels.count)
+  valid = surfels.valid & (torch.arange(
+      surfels.capacity, device=surfels.valid.device) < count)
+  nbytes = (count * POSE_VALID_BYTES
+            + int(valid.sum()) * POSE_SURFEL_BYTES)
+  ops = 0
+  pairs = dict.fromkeys(("tested", "front", "in_image", "measured",
+                         "associated", "descriptor"), 0)
+  for lane in torch.nonzero(~done).flatten().tolist():
+    a = association.associate_surfels(
+        surfels.pos, surfels.normal, valid, se3.inverse(T[lane]),
+        kf.depth[lane], kf.normals[lane], depth_cam, dp)
+    front = valid & (a.local_pos[:, 2] > 0)
+    in_image = front & depth_cam.in_image(a.pxy)
+    measured = in_image & (kf.depth[lane][a.py, a.px] > 0)
+    _, in_color = DepthToColorTransform.between(depth_cam, color_cam).apply(
+        a.pxy)
+    n = {name: int(m.sum()) for name, m in (
+        ("tested", valid), ("front", front), ("in_image", in_image),
+        ("measured", measured), ("associated", a.mask),
+        ("descriptor", a.mask & in_color))}
+    for name in pairs:
+      pairs[name] += n[name]
+    ops += (n["tested"] * POSE_OPS_TESTED + n["front"] * POSE_OPS_FRONT
+            + n["measured"] * POSE_OPS_MEASURED
+            + n["associated"] * (POSE_OPS_ASSOCIATED + POSE_OPS_DEPTH_TERM)
+            + n["descriptor"] * POSE_OPS_DESCRIPTOR_TERMS)
+    nbytes += (min(4 * n["in_image"], 4 * h * w)
+               + min(4 * n["measured"], 4 * dp.cfactor.numel())
+               + min(8 * n["associated"], 8 * h * w)
+               + min(48 * n["descriptor"], 4 * hi * wi))
+  bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+  ops_ms = ops / H100_FP32_OPS_PER_S * 1e3
+  return {"bytes": nbytes, "ops": ops, "pairs": pairs, "bytes_ms": bytes_ms,
+          "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def check_pose_kernels(ba, device) -> dict:
+  """Phase 37: the pose_h_b kernels on phase 7's map and keyframes against
+  their plain versions, and timed."""
+  import torch
+  from badslam_tpu_torch.geometry import se3
+  from badslam_tpu_torch.kernels import build
+  from badslam_tpu_torch.models import pose_opt
+  from badslam_tpu_torch.ops import pose_h_b
+  from badslam_tpu_torch.utils.timing import Timing
+  s = ba.surfels
+  s = s._replace(count=s.count.to(device), **{
+      name: getattr(s, name).contiguous()
+      for name in ("pos", "normal", "radius_sq", "desc", "valid")})
+  kf = ba.kf._replace(**{name: getattr(ba.kf, name).contiguous()
+                         for name in ("depth", "normals", "intensity")})
+  cams = (ba.depth_camera(), ba.color_camera(), ba.depth_params())
+  k = kf.global_T_frame.shape[0]
+  optimize = kf.valid.clone()
+  lanes = torch.nonzero(optimize).flatten().tolist()
+  rng = np.random.default_rng(POSE_SEED)
+  T = kf.global_T_frame.clone()
+  for lane in lanes[1:]:
+    noise = np.concatenate([
+        rng.uniform(-POSE_PERTURBATION[0], POSE_PERTURBATION[0], 3),
+        rng.uniform(-POSE_PERTURBATION[1], POSE_PERTURBATION[1], 3)])
+    T[lane] = T[lane] @ se3.exp(torch.from_numpy(
+        noise.astype(np.float32)).to(device))
+  scratch = (torch.empty((pose_h_b.blocks(s.capacity, device), k,
+                          pose_h_b.SUMS), device=device),
+             torch.zeros((), dtype=torch.int32, device=device))
+  print(f"phase 7's map: {len(lanes)} keyframe lanes of {k} slots, "
+        f"{int(s.count)} surfel slots ({int(s.valid.sum())} valid) of "
+        f"capacity {s.capacity}; pose_h_b built in "
+        f"{build.build_info['pose_h_b'][0]:.1f} s of nvcc")
+
+  def outputs():
+    return (torch.zeros((k, 6, 6), device=device),
+            torch.zeros((k, 6), device=device),
+            torch.zeros((k,), dtype=torch.int32, device=device))
+
+  def lane_args(lane):
+    return (T[lane], kf.depth[lane], kf.normals[lane], kf.intensity[lane])
+
+  # The accumulate kernel: one launch over every lane for the residual
+  # counts, then one a lane over its surfels off their tap cells' edges
+  # for H and b.
+  worst = 0.0
+  for use_depth, use_desc in ((True, True), (True, False), (False, True)):
+    case = {(True, True): "both", (True, False): "depth",
+            (False, True): "descriptors"}[(use_depth, use_desc)]
+    out = outputs()
+    pose_accumulate(kf, cams, T, ~optimize, s, use_depth, use_desc, out,
+                    scratch)
+    counts = out[2].tolist()
+    for lane in lanes:
+      t, d, nrm, inten = lane_args(lane)
+      want_n = int(pose_opt.accumulate_pose_h_b(
+          t, s, d, nrm, inten, *cams, use_depth, use_desc,
+          compute_cost=True)[3])
+      if counts[lane] != want_n or want_n < 200:
+        fail(f"pose_h_b {case} lane {lane}: {counts[lane]} residuals, the "
+             f"plain version {want_n}")
+      s_off = s._replace(valid=s.valid & pose_h_b.off_tap_cell_edges(
+          t, s, d, nrm, *cams))
+      done = torch.ones((k,), dtype=torch.bool, device=device)
+      done[lane] = False
+      out = outputs()
+      pose_accumulate(kf, cams, T, done, s_off, use_depth, use_desc, out,
+                      scratch)
+      wH, wb, _, wn = pose_opt.accumulate_pose_h_b(
+          t, s_off, d, nrm, inten, *cams, use_depth, use_desc,
+          compute_cost=True)
+      scale_H, scale_b = pose_h_b.h_b_scales(t, s_off, d, nrm, inten, *cams,
+                                             use_depth, use_desc)
+      err = max(float(((out[0][lane].cpu() - wH.cpu()).abs()
+                       / scale_H).max()),
+                float(((out[1][lane].cpu() - wb.cpu()).abs()
+                       / scale_b).max()))
+      print(f"pose_h_b accumulate vs plain {case} lane {lane}: {want_n} "
+            f"residuals equal; {int(wn)} off the tap cells' edges, H and b "
+            f"{err!r} of their summands' magnitude (tolerance "
+            f"{POSE_H_B_TOLERANCE})")
+      if int(out[2][lane]) != int(wn) or not err <= POSE_H_B_TOLERANCE:
+        fail(f"pose_h_b {case} lane {lane}: H/b {err} of the summands, "
+             f"{int(out[2][lane])} against {int(wn)} residuals")
+      worst = max(worst, err)
+
+  # The step kernel against step_lanes_plain on the plain H and b.
+  out = outputs()
+  pose_opt.accumulate_lanes_h_b_plain(
+      T, ~optimize, lanes, s, kf.depth, kf.normals, kf.intensity, *cams,
+      True, True, out)
+  H, b, _ = out
+
+  def step_state():
+    return [T.clone(), ~optimize, torch.zeros((2,), dtype=torch.int32,
+                                              device=device),
+            torch.zeros((), dtype=torch.bool, device=device)]
+  got, want = step_state(), step_state()
+  pose_h_b.step(got[0], got[1], H, b, got[2], got[3])
+  pose_opt.step_lanes_plain(want[0], want[1], H, b, want[2], want[3], lanes)
+  step_err = float((got[0] - want[0]).abs().max())
+  print(f"pose_h_b step vs plain: poses {step_err!r} apart (tolerance "
+        f"{POSE_STEP_TOLERANCE}); state {got[2].tolist()} / "
+        f"{want[2].tolist()}")
+  if not (step_err <= POSE_STEP_TOLERANCE and torch.equal(got[1], want[1])
+          and torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])):
+    fail(f"pose_h_b step: poses {step_err} apart, or the lanes' state "
+         f"differs")
+
+  # The whole pose GN against each lane's own loop.
+  before = (pose_h_b.accumulate.launches, pose_h_b.step.launches)
+  with Timing.isolated() as stats:
+    got_T, moved = pose_opt.estimate_frame_poses_batched(
+        T, optimize, s, kf.depth, kf.normals, kf.intensity, *cams)
+  steps = int(sum(stats["BA pose GN steps"].samples))
+  lane_steps = int(sum(stats["BA pose lane steps"].samples))
+  launches = (pose_h_b.accumulate.launches - before[0],
+              pose_h_b.step.launches - before[1])
+  want_T = T.clone()
+  for lane in lanes:
+    t, d, nrm, inten = lane_args(lane)
+    want_T[lane], _ = pose_opt.estimate_frame_pose(t, s, d, nrm, inten,
+                                                   *cams)
+  want_moved = optimize & ~pose_opt.is_scale1_converged(
+      se3.log(se3.inverse(T) @ want_T))
+  loop_err = float((got_T - want_T).abs().max())
+  print(f"pose GN on the card: {steps} shared steps, {lane_steps} lane "
+        f"steps, launches {launches}; poses {loop_err!r} from each lane's "
+        f"plain loop (tolerance {POSE_LOOP_TOLERANCE}); moved "
+        f"{moved.tolist()}")
+  if (launches != (steps, steps) or steps < 2
+      or not loop_err <= POSE_LOOP_TOLERANCE
+      or not torch.equal(moved, want_moved)):
+    fail(f"pose GN: launches {launches} for {steps} steps, poses "
+         f"{loop_err} apart, moved {moved.tolist()} against "
+         f"{want_moved.tolist()}")
+
+  # Times, in turns (plain, kernel, kernel, plain): the accumulate over
+  # every lane with both residual kinds, and the step with every lane open
+  # (b = H x for x = 0.01, which no step converges).
+  out = outputs()
+  done_all = ~optimize
+
+  def run_kernel():
+    pose_accumulate(kf, cams, T, done_all, s, True, True, out, scratch)
+
+  def run_plain():
+    pose_opt.accumulate_lanes_h_b_plain(
+        T, done_all, lanes, s, kf.depth, kf.normals, kf.intensity, *cams,
+        True, True, out)
+
+  b_open = (H @ torch.full((k, 6, 1), 1e-2, device=device))[..., 0]
+  kernel_state, plain_state = step_state(), step_state()
+
+  def run_step():
+    pose_h_b.step(kernel_state[0], kernel_state[1], H, b_open,
+                  *kernel_state[2:])
+
+  def run_step_plain():
+    pose_opt.step_lanes_plain(plain_state[0], plain_state[1], H, b_open,
+                              *plain_state[2:], lanes)
+
+  timing = {}
+  for name, kernel_fn, plain_fn in (("accumulate", run_kernel, run_plain),
+                                    ("step", run_step, run_step_plain)):
+    plain = [cuda_median_ms(plain_fn, runs=10)]
+    kernel, call = [], []
+    for _ in range(2):
+      kernel.append(device_ms_per_launch(kernel_fn))
+      call.append(cuda_median_ms(kernel_fn))
+    plain.append(cuda_median_ms(plain_fn, runs=10))
+    timing[name] = {"ms": statistics.mean(kernel),
+                    "call_ms": statistics.mean(call),
+                    "plain_ms": statistics.mean(plain)}
+    print(f"pose_h_b {name} at {len(lanes)} lanes, each turn's median: "
+          f"kernel on the device {kernel} ms per launch; one wrapper call "
+          f"from the host {call} ms; plain {plain} ms")
+  if int(kernel_state[1].sum()) != k - len(lanes):
+    fail("pose_h_b step timing: a lane converged")
+  bound = pose_h_b_bound(kf, cams, T, done_all, s)
+  step_bytes = len(lanes) * (2 * 64 + 144 + 24 + 2)
+  step_ops = len(lanes) * POSE_STEP_OPS_PER_LANE
+  step_bound = {"bytes_ms": step_bytes / H100_BYTES_PER_S * 1e3,
+                "ops_ms": step_ops / H100_FP32_OPS_PER_S * 1e3}
+  step_bound["bound_ms"] = max(step_bound.values())
+  step_bound["bound_by"] = ("operations" if step_bound["ops_ms"]
+                            > step_bound["bytes_ms"] else "bytes")
+  for name, bnd in (("accumulate", bound), ("step", step_bound)):
+    timing[name].update(bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+  print(f"pose_h_b accumulate bound: pairs {json.dumps(bound['pairs'])}; "
+        f"{bound['bytes']} bytes -> {bound['bytes_ms'] * 1e3!r} us; "
+        f"{bound['ops']} float32 operations -> {bound['ops_ms'] * 1e3!r} "
+        f"us; bound {bound['bound_ms'] * 1e3!r} us by {bound['bound_by']}; "
+        f"the kernel reaches "
+        f"{bound['bound_ms'] / timing['accumulate']['ms'] * 100!r}% of it")
+  print(f"pose_h_b step bound: {step_bytes} bytes, {step_ops} float32 "
+        f"operations -> {step_bound['bound_ms'] * 1e3!r} us by "
+        f"{step_bound['bound_by']}; the kernel reaches "
+        f"{step_bound['bound_ms'] / timing['step']['ms'] * 100!r}% of it "
+        f"(one thread a lane: its time is the launch and the lane's "
+        f"serial arithmetic)")
+  return {"max_scaled_err": worst, "step_err": step_err,
+          "loop_err": loop_err, "lanes": len(lanes), **timing}
 
 
 # Phase 36: the cold start. Phase 7's command line in fresh processes,
@@ -3071,6 +3436,7 @@ def main() -> int:
     data = timed("4", write_dataset, workdir)
     path = timed("5-6", run_main_path, workdir, data)
     ba_path = timed("7", run_ba_path, workdir, data, path["ate"])
+    pose = timed("37", check_pose_kernels, ba_path.pop("ba"), device)
     cold = timed("36", run_cold_start, workdir, data, device)
     timed("8", check_ba_determinism, data, device)
     timed("9-10", check_self_calibration_recovery, device)
@@ -3146,7 +3512,21 @@ def main() -> int:
       "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
       "call_ms": kernel["call_ms"], "plain_ms": kernel["plain_ms"],
       "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
-      "library_ms": None}]}
+      "library_ms": None}] + [{
+      "name": f"pose_h_b_{name}_kernel", "route": "cuda",
+      "source": "badslam_tpu_torch/csrc/pose_h_b.cu",
+      "replaces": replaces, "launches": launched,
+      "lanes": pose["lanes"], err_key: pose[err_name],
+      **{key: pose[name][key] for key in ("ms", "call_ms", "plain_ms",
+                                          "bound_ms", "bound_by")},
+      "library_ms": None}
+      for name, replaces, launched, err_key, err_name in (
+          ("accumulate", "badslam_tpu/models/pose_opt.py:60 "
+           "(accumulate_pose_h_b, an XLA program)",
+           ba_path["pose_launches"][0], "max_scaled_err", "max_scaled_err"),
+          ("step", "badslam_tpu/models/pose_opt.py:171 (the step of "
+           "estimate_frame_poses_batched's lax.while_loop)",
+           ba_path["pose_launches"][1], "max_abs_err", "step_err"))]}
   print(json.dumps(summary))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": name,

@@ -26,25 +26,41 @@ compares the accumulators only. The pose GN test runs on the state without
 the added noise, where GN converges; on the noisy state the robust weights
 make it oscillate at the 1e-3 convergence threshold in both packages, and an
 oscillation amplifies rounding.
+
+The BA pose phase's shared loop (``estimate_frame_poses_batched``) is held
+on the CPU, with the kernels' plain versions, to each lane's own
+``estimate_frame_pose`` bit for bit. The ``pose_h_b`` kernels are held on
+the card (``cuda``-marked cases, on a map the port builds there, since that
+machine has no JAX) against the plain version on the card: residual counts
+equal; H and b within 5e-5 of the magnitude of their summands, on the
+surfels whose descriptor sample points lie off the edges of their bilinear
+tap cells (where the gradient jumps); the whole pose GN's poses within
+1e-5 and ``moved`` equal.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from badslam_tpu.geometry import se3 as jse3
-from badslam_tpu.models import association as jassociation
-from badslam_tpu.models import cost as jcost
-from badslam_tpu.models import geometry_opt as jgeometry_opt
-from badslam_tpu.models import pose_opt as jpose_opt
-from badslam_tpu.slam import direct_ba as jdirect_ba
 from badslam_tpu_torch.geometry import se3
 from badslam_tpu_torch.models import association, cost, geometry_opt, pose_opt
+from badslam_tpu_torch.ops import pose_h_b
 from badslam_tpu_torch.utils import synthetic
-from tests.test_torch_ba_fixtures import (
-    cameras, make_pair, perturbed_pose, plane_keyframe, port_from_jax)
+from badslam_tpu_torch.utils.timing import Timing
+
+try:
+  import jax
+  import jax.numpy as jnp
+  from badslam_tpu.geometry import se3 as jse3
+  from badslam_tpu.models import association as jassociation
+  from badslam_tpu.models import cost as jcost
+  from badslam_tpu.models import geometry_opt as jgeometry_opt
+  from badslam_tpu.models import pose_opt as jpose_opt
+  from badslam_tpu.slam import direct_ba as jdirect_ba
+  from tests.test_torch_ba_fixtures import (
+      cameras, make_pair, perturbed_pose, plane_keyframe, port_from_jax)
+except ImportError:  # the card's machine: only the cuda-marked cases run
+  jax = None
 
 
 def _make_state(noisy):
@@ -229,8 +245,8 @@ def test_accumulate_pose_h_b_matches_jax(state, use_depth, use_desc):
 
 def test_estimate_frame_poses_batched_matches_jax(clean_state):
   """Three keyframes, two of them perturbed; slot 3 of the store is empty
-  and stays out. The port's one-loop-per-keyframe GN against the
-  reference's shared loop with per-keyframe lanes."""
+  and stays out. The port's shared loop (the kernels' plain versions on
+  the CPU) against the reference's shared loop with per-keyframe lanes."""
   jba, pba = clean_state
   optimize = np.array([True, True, True, False])
   # The reference's function as its DirectBA runs it: inside the jitted
@@ -260,6 +276,90 @@ def test_estimate_frame_poses_batched_matches_jax(clean_state):
       pba.kf.depth, pba.kf.normals, pba.kf.intensity, *_port_args(pba),
       slots=[0, 1, 2])
   np.testing.assert_array_equal(pT2.numpy(), pT.numpy())
+
+
+def _count_h_b_calls(monkeypatch):
+  """A list that gains one entry per call of accumulate_pose_h_b."""
+  calls = []
+  real = pose_opt.accumulate_pose_h_b
+
+  def counted(*args, **kwargs):
+    calls.append(1)
+    return real(*args, **kwargs)
+
+  monkeypatch.setattr(pose_opt, "accumulate_pose_h_b", counted)
+  return calls
+
+
+@pytest.mark.parametrize("noisy,max_iterations,transfer_free", [
+    (False, 30, False), (False, 2, False), (True, 5, False),
+    (False, 30, True)],
+    ids=["clean", "clean-cap2", "noisy-cap5", "clean-transfer-free"])
+def test_shared_loop_freezes_lanes_like_estimate_frame_pose(
+    state, clean_state, monkeypatch, noisy, max_iterations, transfer_free):
+  """The shared loop on the CPU (the kernels' plain versions) gives each
+  lane the pose of its own ``estimate_frame_pose`` loop bit for bit: a lane
+  takes the step that converges it and then holds still, and the loop runs
+  as long as its slowest lane. The counters record the shared steps and the
+  lanes open at each, summed; with ``transfer_free`` no count is read, so
+  only the steps are recorded."""
+  _, pba = state if noisy else clean_state
+  kf = pba.kf
+  optimize = torch.tensor([True, True, True, False])
+  calls = _count_h_b_calls(monkeypatch)
+  want, steps = [], []
+  for k in range(3):
+    before = len(calls)
+    T, _ = pose_opt.estimate_frame_pose(
+        kf.global_T_frame[k], pba.surfels, kf.depth[k], kf.normals[k],
+        kf.intensity[k], *_port_args(pba), max_iterations=max_iterations)
+    want.append(T)
+    steps.append(len(calls) - before)
+  assert len(set(steps)) > 1  # the lanes converge at different steps
+  del calls[:]
+  with Timing.isolated() as stats:
+    got, _ = pose_opt.estimate_frame_poses_batched(
+        kf.global_T_frame, optimize, pba.surfels, kf.depth, kf.normals,
+        kf.intensity, *_port_args(pba), max_iterations=max_iterations,
+        transfer_free=transfer_free)
+  for k in range(3):
+    assert torch.equal(got[k], want[k]), k
+  assert torch.equal(got[3], kf.global_T_frame[3])
+  # Transfer-free, the host cannot tell which lanes are open: every lane is
+  # computed at every step, and a done lane's result dropped.
+  assert len(calls) == (3 * max(steps) if transfer_free else sum(steps))
+  assert stats["BA pose GN steps"].samples == [max(steps)]
+  assert stats["BA pose GN steps"].counter
+  if transfer_free:
+    assert "BA pose lane steps" not in stats
+  else:
+    assert stats["BA pose lane steps"].samples == [sum(steps)]
+
+
+def test_pose_h_b_launchers_refuse_non_cuda_tensors(clean_state):
+  """The kernels' launchers take CUDA tensors only: a CPU or meta tensor
+  raises and launches nothing (the shared loop takes the plain versions
+  for CPU tensors)."""
+  _, pba = clean_state
+  kf = pba.kf
+  k = kf.capacity
+  done = torch.zeros((k,), dtype=torch.bool)
+  out = (torch.zeros((k, 6, 6)), torch.zeros((k, 6)),
+         torch.zeros((k,), dtype=torch.int32))
+  state_ = torch.zeros((2,), dtype=torch.int32)
+  flag = torch.zeros((), dtype=torch.bool)
+  before = (pose_h_b.accumulate.launches, pose_h_b.step.launches)
+  intr = torch.zeros((4,))
+  for T in (kf.global_T_frame, kf.global_T_frame.to("meta")):
+    with pytest.raises(ValueError, match="no pose_h_b kernel"):
+      pose_h_b.accumulate(
+          T, done, pba.surfels, kf.depth, kf.normals, kf.intensity, intr,
+          intr, (160, 120), pba.depth_params(), True, True, out,
+          torch.zeros((1, k, pose_h_b.SUMS)),
+          torch.zeros((), dtype=torch.int32))
+    with pytest.raises(ValueError, match="no pose_h_b kernel"):
+      pose_h_b.step(T, done, out[0], out[1], state_, flag)
+  assert (pose_h_b.accumulate.launches, pose_h_b.step.launches) == before
 
 
 @pytest.mark.parametrize("use_depth,use_desc", [
@@ -436,3 +536,225 @@ def test_geometry_offset_jacobians_match_autograd(random_surfels):
   jp = -(gx * term1 + gy * term2) / (ls[..., 2] * ls[..., 2])
   auto = torch.diagonal(_jacobian(descriptor_residuals, n))
   np.testing.assert_allclose(auto.numpy(), jp.numpy(), atol=2e-3, rtol=2e-3)
+
+
+# ---- The pose_h_b kernels on the card (no JAX there) ----
+
+NEEDS_CUDA = "needs CUDA: the pose_h_b kernels run on the card only"
+_CARD_STATES = {}
+
+
+def _card_state(kind):
+  """A map built by the port's DirectBA on the card: 6 keyframes of the
+  multi-view plane world at 320x240 (textured, sparsification 4), every
+  keyframe's surfels, the keyframe poses perturbed by a seeded 2 mm /
+  1 mrad. Slot 6 is optimized but holds no image, so no surfel associates
+  with it; slot 7 is not optimized. Every 7th live surfel slot is made
+  invalid and, with every slot past the watermark, carries NaN and inf.
+  "random" adds seeded noise to the surfels' positions, normals, radii
+  and descriptors. Returns (poses, optimize mask, surfels, DirectBA)."""
+  if kind in _CARD_STATES:
+    return _CARD_STATES[kind]
+  from badslam_tpu_torch.config import BadSlamConfig
+  from badslam_tpu_torch.slam.direct_ba import DirectBA
+  cam = synthetic.default_test_camera(320, 240)
+  config = BadSlamConfig(
+      sparse_surfel_cell_size=4,
+      min_observation_count_while_bootstrapping_1=1,
+      min_observation_count_while_bootstrapping_2=1,
+      min_observation_count=1, initial_keyframe_capacity=8, max_depth=20.0)
+  ba = DirectBA(config, cam, cam, device="cuda")
+  for i, (keyframe, T) in enumerate(synthetic.multi_view_plane_keyframes(
+      cam, n_kf=6, n_planes=8, textured=True)):
+    ba.add_keyframe(*keyframe, T, i)
+  for i in range(6):
+    ba.create_surfels_for_keyframe(i, filter_new_surfels=True)
+  rng = np.random.default_rng(11 if kind == "random" else 5)
+  s = ba.surfels
+  n, count = s.capacity, int(s.count)
+  assert ba.keyframe_count == 6 and count > 2000
+  dev = s.pos.device
+  T = ba.kf.global_T_frame.clone()
+  for k in range(1, 6):
+    noise = np.concatenate([rng.uniform(-2e-3, 2e-3, 3),
+                            rng.uniform(-1e-3, 1e-3, 3)]).astype(np.float32)
+    T[k] = T[k] @ se3.exp(torch.from_numpy(noise).to(dev))
+  T[6] = T[0]
+  pos, normal, desc, radius_sq = s.pos, s.normal, s.desc, s.radius_sq
+  if kind == "random":
+    def noise(shape, scale):
+      return torch.from_numpy(
+          rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+    pos = pos + noise((n, 3), 5e-4)
+    normal = normal + noise((n, 3), 0.05)
+    normal = normal / normal.norm(dim=-1, keepdim=True)
+    desc = desc + noise((n, 2), 2.0)
+    radius_sq = radius_sq * torch.from_numpy(
+        rng.uniform(0.5, 1.5, n).astype(np.float32)).to(dev)
+  slot = torch.arange(n, device=dev)
+  bad = (slot % 7 == 0) | (slot >= count)
+  nan, inf = float("nan"), float("inf")
+  s = s._replace(
+      pos=torch.where(bad[:, None], nan, pos),
+      normal=torch.where(bad[:, None], inf, normal),
+      desc=torch.where(bad[:, None], nan, desc),
+      radius_sq=torch.where(bad, inf, radius_sq),
+      valid=s.valid & ~bad)
+  optimize = torch.tensor([True] * 7 + [False], device=dev)
+  _CARD_STATES[kind] = (T, optimize, s, ba)
+  return _CARD_STATES[kind]
+
+
+def _card_args(ba):
+  return (ba.depth_camera(), ba.color_camera(), ba.depth_params())
+
+
+def _launch_accumulate(ba, T, done, s, use_depth, use_desc, out):
+  depth_cam, color_cam, dp = _card_args(ba)
+  kf, dev = ba.kf, T.device
+  partials = torch.empty((pose_h_b.blocks(s.capacity, dev), T.shape[0],
+                          pose_h_b.SUMS), device=dev)
+  ticket = torch.zeros((), dtype=torch.int32, device=dev)
+  pose_h_b.accumulate(
+      T, done, s, kf.depth, kf.normals, kf.intensity,
+      pose_opt._intrinsics(depth_cam, dev),
+      pose_opt._intrinsics(color_cam, dev),
+      (color_cam.width, color_cam.height), dp, use_depth, use_desc, out,
+      partials, ticket)
+  torch.cuda.synchronize()
+  assert int(ticket) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_depth,use_desc", [
+    (True, False), (False, True), (True, True)],
+    ids=["depth", "descriptors", "both"])
+@pytest.mark.parametrize("kind", ["random", "session"])
+def test_cuda_lane_h_b_matches_accumulate_pose_h_b(kind, use_depth,
+                                                   use_desc):
+  """The accumulate kernel against ``accumulate_pose_h_b`` per lane on the
+  card. One launch over every lane: residual counts equal; the lane with
+  no image all zeros; the lane that is not optimized not written. Then one
+  launch per lane over the surfels off their tap cells' edges
+  (``pose_h_b.off_tap_cell_edges``): H and b within 5e-5 of the magnitude
+  of their summands (``pose_h_b.h_b_scales``). Measured on an H100 up to 1.1e-5 against
+  the float64 sum of the plain version's summands, where the plain version
+  comes within 7e-7: a residual cancels inside itself (n . (u - p) of two
+  nearly equal points, the difference of two intensity samples), so an
+  ulp of its factors, which the kernel and the plain version's reductions
+  round in their own order, is large beside the summand."""
+  if not torch.cuda.is_available():
+    pytest.skip(NEEDS_CUDA)
+  T, optimize, s, ba = _card_state(kind)
+  kf = ba.kf
+  k = T.shape[0]
+  dev = T.device
+  args = _card_args(ba)
+
+  def outputs():
+    out = (torch.full((k, 6, 6), 7.0, device=dev),
+           torch.full((k, 6), 7.0, device=dev),
+           torch.full((k,), 7, dtype=torch.int32, device=dev))
+    out[0][:7], out[1][:7], out[2][:7] = 0.0, 0.0, 0
+    return out
+
+  out = outputs()
+  before = pose_h_b.accumulate.launches
+  _launch_accumulate(ba, T, ~optimize, s, use_depth, use_desc, out)
+  assert pose_h_b.accumulate.launches == before + 1
+  H, b, n_all = (x.cpu() for x in out)
+  assert not H[6].any() and not b[6].any() and int(n_all[6]) == 0
+  assert (H[7] == 7.0).all() and (b[7] == 7.0).all() and int(n_all[7]) == 7
+  for lane in range(6):
+    _, _, _, want_n = pose_opt.accumulate_pose_h_b(
+        T[lane], s, kf.depth[lane], kf.normals[lane], kf.intensity[lane],
+        *args, use_depth, use_desc, compute_cost=True)
+    assert int(n_all[lane]) == int(want_n) > 500, lane
+
+    off = pose_h_b.off_tap_cell_edges(
+        T[lane], s, kf.depth[lane], kf.normals[lane], *args)
+    s_off = s._replace(valid=s.valid & off)
+    out = outputs()
+    done = torch.ones((k,), dtype=torch.bool, device=dev)
+    done[lane] = False
+    _launch_accumulate(ba, T, done, s_off, use_depth, use_desc, out)
+    wH, wb, _, wn = pose_opt.accumulate_pose_h_b(
+        T[lane], s_off, kf.depth[lane], kf.normals[lane],
+        kf.intensity[lane], *args, use_depth, use_desc, compute_cost=True)
+    H, b, n = (x[lane].cpu() for x in out)
+    scale_H, scale_b = pose_h_b.h_b_scales(
+        T[lane], s_off, kf.depth[lane], kf.normals[lane],
+        kf.intensity[lane], *args, use_depth, use_desc)
+    err_H = float(((H - wH.cpu()).abs() / scale_H).max())
+    err_b = float(((b - wb.cpu()).abs() / scale_b).max())
+    print(f"{kind} lane {lane}: {int(wn)} of {int(want_n)} residuals off "
+          f"the edges, H {err_H:.3g}, b {err_b:.3g} of the summands' "
+          f"magnitude")
+    assert int(n) == int(wn) > 200
+    assert err_H <= 5e-5 and err_b <= 5e-5, lane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "session"])
+def test_cuda_shared_loop_matches_per_keyframe_loop(kind):
+  """``estimate_frame_poses_batched`` on the card (the shared loop, two
+  launches a step) against the plain per-keyframe loop on the card: poses
+  within 1e-5, ``moved`` equal; the lane with no associations converges at
+  its first step unmoved; the counters and launch counts add up."""
+  if not torch.cuda.is_available():
+    pytest.skip(NEEDS_CUDA)
+  T, optimize, s, ba = _card_state(kind)
+  kf = ba.kf
+  args = _card_args(ba)
+  launches = (pose_h_b.accumulate.launches, pose_h_b.step.launches)
+  with Timing.isolated() as stats:
+    got, moved = pose_opt.estimate_frame_poses_batched(
+        T, optimize, s, kf.depth, kf.normals, kf.intensity, *args)
+  steps = stats["BA pose GN steps"].samples
+  lane_steps = stats["BA pose lane steps"].samples
+  assert len(steps) == 1 and 2 <= steps[0] <= 30
+  assert steps[0] < lane_steps[0] <= 7 * steps[0]
+  assert (pose_h_b.accumulate.launches - launches[0]
+          == pose_h_b.step.launches - launches[1] == steps[0])
+  want = T.clone()
+  for lane in range(7):
+    want[lane], _ = pose_opt.estimate_frame_pose(
+        T[lane], s, kf.depth[lane], kf.normals[lane], kf.intensity[lane],
+        *args)
+  want_moved = optimize & ~pose_opt.is_scale1_converged(
+      se3.log(se3.inverse(T) @ want))
+  err = float((got - want).abs().max())
+  print(f"{kind}: poses {err:.3g} apart; {steps[0]} steps, "
+        f"{lane_steps[0]} lane steps; moved {moved.tolist()}")
+  assert err <= 1e-5
+  assert torch.equal(moved, want_moved)
+  assert torch.equal(got[6], T[6]) and torch.equal(got[7], T[7])
+  assert moved[1:6].all() and not moved[6]
+
+
+@pytest.mark.cuda
+def test_cuda_launchers_check_their_tensors():
+  """On the card a launcher raises on a dtype or shape it does not take,
+  and launches nothing."""
+  if not torch.cuda.is_available():
+    pytest.skip(NEEDS_CUDA)
+  k = 4
+  f = dict(device="cuda")
+  T = torch.eye(4, **f).repeat(k, 1, 1)
+  done = torch.zeros((k,), dtype=torch.bool, **f)
+  H, b = torch.zeros((k, 6, 6), **f), torch.zeros((k, 6), **f)
+  state = torch.zeros((2,), dtype=torch.int32, **f)
+  flag = torch.zeros((), dtype=torch.bool, **f)
+  before = pose_h_b.step.launches
+  with pytest.raises(TypeError):
+    pose_h_b.step(T.double(), done, H, b, state, flag)
+  with pytest.raises(ValueError):
+    pose_h_b.step(T, done[:3], H, b, state, flag)
+  assert pose_h_b.step.launches == before
+  pose_h_b.step(T, done, H, b, state, flag)
+  torch.cuda.synchronize()
+  assert pose_h_b.step.launches == before + 1
+  # Every lane's H is zero: the finite guard zeroes the step, every lane
+  # converges unmoved.
+  assert torch.equal(T, torch.eye(4, **f).repeat(k, 1, 1))
+  assert done.all() and bool(flag) and state.tolist() == [0, k]
