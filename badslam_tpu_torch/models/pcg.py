@@ -28,6 +28,16 @@ them once per keyframe (``KeyframeTerms``) and every product of its up to
 keyframe; where that would not fit into half of the free device memory they
 are recomputed in every pass instead, which gives the same bits.
 
+``pcg_solve`` records the spans "BA PCG init" (the terms' first pass and
+``pcg_init``) and "BA PCG inner loop" (the CG iterations, one host read
+each), and one sample per solve of the ``Timing`` counters "BA PCG inner
+iterations" (launched, with ``transfer_free``), "BA PCG keyframe passes"
+and "BA PCG terms recomputed" (0 where the terms were held, else the
+passes, each of which computed them again). No span covers one inner
+iteration: a device-accurate span ends in a wait for the device, and the
+loop already reads one flag an iteration. Over a mesh only the first
+position records them, since every position runs the same loop.
+
 Over a device mesh (``parallel/sharded_ba.py``, ``parallel/spmd.py``)
 ``axis_name`` names the mesh axis the surfel unknowns are sharded over and
 ``kf_axis`` the one the keyframes and their pose unknowns are sharded over.
@@ -40,6 +50,7 @@ neither axis every result is what it is without a mesh.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -55,6 +66,7 @@ from badslam_tpu_torch.models.keyframes import COVISIBLE_ACTIVE, KeyframeStore
 from badslam_tpu_torch.models.surfels import SurfelStore
 from badslam_tpu_torch.ops.segment import SegmentPlan, plan_segments
 from badslam_tpu_torch.parallel import spmd
+from badslam_tpu_torch.utils.timing import Timing
 from badslam_tpu_torch.utils.transfer import DonePoll
 
 DIAG_EPSILON = 1e-8     # kDiagEpsilon (kernel_pcg.cu:44)
@@ -292,6 +304,19 @@ class KeyframeTerms:
       yield k, terms
 
 
+def records(*axes: Optional[str]) -> bool:
+  """Whether the caller records the joint step's spans and counters: always
+  without a mesh; on a mesh's first position only (the mesh ``axes`` that
+  are not None), since every position runs the same loop."""
+  return all(a is None or spmd.axis_index(a) == 0 for a in axes)
+
+
+def span(tag: str, *axes: Optional[str]):
+  """``Timing.time(tag)`` where ``records(*axes)``, else a block that
+  records nothing."""
+  return Timing.time(tag) if records(*axes) else contextlib.nullcontext()
+
+
 def _gauge_mask(k: int, gauge_index, device,
                 kf_axis: Optional[str] = None) -> torch.Tensor:
   """(k, 1) mask of the pose row that is held fixed. Under kf sharding the
@@ -506,48 +531,57 @@ def pcg_solve(surfels: SurfelStore, kf: KeyframeStore,
   stays on the device and the delta holds once it is set
   (utils/transfer.py). ``stats``, if given, receives the inner iterations
   run (launched, with ``transfer_free``), the passes over the keyframes and
-  the keyframe terms computed. ``axis_name`` and ``kf_axis`` as in
+  the keyframe terms computed; the same go to ``Timing`` (see the module's
+  docstring). ``axis_name`` and ``kf_axis`` as in
   ``pcg_init``: every value that steers the loop is then the same on every
   shard."""
-  terms = KeyframeTerms(surfels, kf, depth_cam, color_cam, dp, use_depth,
-                        use_desc, opt_dintr, opt_cintr, slots, transfer_free)
   common = (surfels, kf, depth_cam, color_cam, dp, gauge_index, use_depth,
             use_desc)
   axes = dict(axis_name=axis_name, kf_axis=kf_axis)
-  r, M = pcg_init(*common, terms=terms, **axes)
-  M_inv = PCGVector(*(1.0 / m for m in M))
+  with span("BA PCG init", axis_name, kf_axis):
+    terms = KeyframeTerms(surfels, kf, depth_cam, color_cam, dp, use_depth,
+                          use_desc, opt_dintr, opt_cintr, slots,
+                          transfer_free)
+    r, M = pcg_init(*common, terms=terms, **axes)
+    M_inv = PCGVector(*(1.0 / m for m in M))
 
-  delta = zeros_like_vec(kf.capacity, surfels.capacity, dp.cfactor.numel(),
-                         surfels.device)
-  g = M_inv.mul(r)
-  pvec = g
-  alpha_n = r.dot(g, **axes)
-  threshold = 1e-10 * alpha_n + 1e-30
+    delta = zeros_like_vec(kf.capacity, surfels.capacity,
+                           dp.cfactor.numel(), surfels.device)
+    g = M_inv.mul(r)
+    pvec = g
+    alpha_n = r.dot(g, **axes)
+    threshold = 1e-10 * alpha_n + 1e-30
   iterations = 0
   if transfer_free:
     mesh_axes = tuple(a for a in (axis_name, kf_axis) if a is not None)
     poll = DonePoll(surfels.device, mesh_axes or None)
     done = ~(alpha_n > threshold)
-  while iterations < max_inner_iterations and (
-      transfer_free or bool(alpha_n > threshold)):
-    h = apply_hessian(pvec, *common, terms=terms, **axes)
-    alpha_d = pvec.dot(h, **axes)
-    alpha = alpha_n / torch.clamp(alpha_d, min=1e-30)
-    stepped = delta + pvec.scale(alpha)
-    delta = (PCGVector(*(torch.where(done, a, b)
-                         for a, b in zip(delta, stepped)))
-             if transfer_free else stepped)
-    r = r - h.scale(alpha)
-    g = M_inv.mul(r)
-    beta_n = r.dot(g, **axes)
-    beta = beta_n / torch.clamp(alpha_n, min=1e-30)
-    pvec = g + pvec.scale(beta)
-    alpha_n = beta_n
-    iterations += 1
-    if transfer_free:
-      done = done | ~(alpha_n > threshold)
-      if poll.done(done):
-        break
+  with span("BA PCG inner loop", axis_name, kf_axis):
+    while iterations < max_inner_iterations and (
+        transfer_free or bool(alpha_n > threshold)):
+      h = apply_hessian(pvec, *common, terms=terms, **axes)
+      alpha_d = pvec.dot(h, **axes)
+      alpha = alpha_n / torch.clamp(alpha_d, min=1e-30)
+      stepped = delta + pvec.scale(alpha)
+      delta = (PCGVector(*(torch.where(done, a, b)
+                           for a, b in zip(delta, stepped)))
+               if transfer_free else stepped)
+      r = r - h.scale(alpha)
+      g = M_inv.mul(r)
+      beta_n = r.dot(g, **axes)
+      beta = beta_n / torch.clamp(alpha_n, min=1e-30)
+      pvec = g + pvec.scale(beta)
+      alpha_n = beta_n
+      iterations += 1
+      if transfer_free:
+        done = done | ~(alpha_n > threshold)
+        if poll.done(done):
+          break
+  if records(axis_name, kf_axis):
+    Timing.count("BA PCG inner iterations", iterations)
+    Timing.count("BA PCG keyframe passes", terms.passes)
+    Timing.count("BA PCG terms recomputed",
+                 0 if terms.held is not None else terms.passes)
   if stats is not None:
     stats.update(iterations=iterations, passes=terms.passes,
                  terms_computed=terms.computed,

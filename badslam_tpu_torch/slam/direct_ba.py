@@ -22,6 +22,9 @@ direct_ba.cc:566-653.
   * Each phase loops in Python over the keyframe slots that take part, so
     device work scales with the active set and there is no active-keyframe
     window to gather (``config.use_active_kf_window`` changes nothing).
+    ``bundle_adjustment`` records their number under the ``Timing`` counter
+    "BA participating keyframes", one sample per iteration, under either
+    solver: the size of the system the iteration solves.
   * Deletion and merging clear validity masks; compaction runs at the end
     of a scheme when a quarter of the store is dead slots.
   * Every reduction is a sum in a fixed order, an integer ``amin`` or a
@@ -603,8 +606,9 @@ class DirectBA:
       # The normals are re-estimated under the calibration the step was
       # linearized at, as in the reference; only then is the new one
       # written.
-      surfels = geometry_opt.reestimate_normals(
-          surfels, kf, v.depth_cam, calib, slots=slots)
+      with pcg_mod.span("BA PCG normal re-estimation", self._axis):
+        surfels = geometry_opt.reestimate_normals(
+            surfels, kf, v.depth_cam, calib, slots=slots)
       pose_update = torch.where(kf.valid[:, None], delta.poses.abs(),
                                 0.0).max()
       return (surfels, kf.global_T_frame, new_calibration, pose_update,
@@ -730,6 +734,7 @@ class DirectBA:
                                 -1).cpu().numpy()
       active_slots = np.flatnonzero(act_valid == ACTIVE).tolist()
       participating = np.flatnonzero(act_valid >= COVISIBLE_ACTIVE).tolist()
+      Timing.count("BA participating keyframes", len(participating))
 
       # --- SURFEL CREATION for newly active keyframes ---
       old_valid = self._store().valid

@@ -44,8 +44,10 @@ active, up to 10 iterations) three times: to warm up; timed, with
 Prints, per BA iteration and per "BA ..." phase: wall ms, kernel launches,
 device busy ms, device-to-host copies (each one a host read that waits for
 the device), and the device idle share of the whole call. ``--use_pcg``
-replaces the geometry and pose phases by the joint PCG step (span "BA PCG";
-the inner iterations of each solve are printed too) and
+replaces the geometry and pose phases by the joint PCG step (span "BA PCG"
+and its phases "BA PCG init", "BA PCG inner loop", "BA PCG normal
+re-estimation"; the program's counters, such as "BA PCG inner
+iterations", are printed with their samples) and
 ``--optimize_intrinsics`` turns both intrinsics flags on: the alternated
 step (span "BA intrinsics optimization") or, with ``--use_pcg``, the
 intrinsics unknowns of the joint vector.
@@ -182,12 +184,11 @@ def profile_ba(args) -> int:
         f"{target.surfel_count} surfels after; wall {timed_ms!r} ms, "
         f"{timed_ms / iterations!r} ms per iteration (end tasks included)")
   for phase, s in sorted(stats.items(), key=lambda kv: -kv[1].total):
-    print(f"  timed {phase}: count {s.count}, total {s.total * 1e3!r} ms, "
-          f"mean {s.mean * 1e3!r} ms")
-  if args.use_pcg:
-    print(f"  timed PCG inner iterations per solve: "
-          f"{target.pcg_inner_iterations} (each one a pass over the "
-          f"keyframes and one host read)")
+    if s.counter:
+      print(f"  counter {phase}: samples {s.samples}, mean {s.mean!r}")
+    else:
+      print(f"  timed {phase}: count {s.count}, total {s.total * 1e3!r} ms, "
+            f"mean {s.mean * 1e3!r} ms")
   if cuda:
     print(f"  peak device memory so far (max_memory_allocated): "
           f"{torch.cuda.max_memory_allocated()} bytes")
