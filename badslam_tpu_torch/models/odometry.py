@@ -33,7 +33,7 @@ from badslam_tpu_torch.models.pose_opt import solve_6x6
 from badslam_tpu_torch.ops import interp
 from badslam_tpu_torch.ops.depth_proc import normals_3d
 from badslam_tpu_torch.ops.pyramid import FramePyramidLevel
-from badslam_tpu_torch.utils.transfer import DonePoll
+from badslam_tpu_torch.utils.transfer import LoopEnd
 
 # convergence_analysis.h:56-63, tuned by the reference for 640x480.
 _SCALE_N_THRESHOLD = 1e-8
@@ -271,8 +271,9 @@ def track_frame_pairwise(
     gn_iterations: Optional[List[int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Coarse-to-fine tracking; returns (base_T_frame, residual_count), both
-  on the device. With ``transfer_free`` the GN loops end without the host
-  waiting for the device (the pipelined front-end), with the same result.
+  on the device. Each GN loop ends on a read of its convergence flag, or
+  with ``transfer_free`` on a poll that never makes the host wait for the
+  device (the pipelined front-end), with the same result.
   The pyramids hold *calibrated* depth, level 0 = full resolution.
   ``residual_count`` is the number of associated pixels in the finest
   scale's last GN iteration; the caller treats near-zero as a tracking
@@ -318,14 +319,13 @@ def track_frame_pairwise(
     else:
       damping = 1.0
 
+    # The reference's while loop with the flag on the device: once a step
+    # converged, the pose and the residual count hold, and the loop ends
+    # where its ending sees the flag (utils/transfer.py).
+    end = LoopEnd(estimate.device, transfer_free)
+    done = torch.zeros((), dtype=torch.bool, device=estimate.device)
     residual_count = torch.zeros((), dtype=torch.int32,
                                  device=estimate.device)
-    if transfer_free:
-      # The reference's while loop with the flag on the device: once a step
-      # converged, the pose and the residual count hold, and the loop ends
-      # at the first poll that sees the flag (utils/transfer.py).
-      poll = DonePoll(estimate.device)
-      done = torch.zeros((), dtype=torch.bool, device=estimate.device)
     launched = 0
     for _ in range(max_iterations_per_scale):
       launched += 1
@@ -337,18 +337,11 @@ def track_frame_pairwise(
       x = torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
       converged = is_scale_n_converged(x, scaling_factor,
                                        convergence_threshold)
-      if not transfer_free:
-        estimate = estimate @ se3.exp(-damping * x)
-        residual_count = n
-        # The one host read of the GN loop.
-        if bool(converged):
-          break
-        continue
       estimate = torch.where(done, estimate,
                              estimate @ se3.exp(-damping * x))
       residual_count = torch.where(done, residual_count, n)
       done = done | converged
-      if poll.done(done):
+      if end.done(done):
         break
     if gn_iterations is not None:
       gn_iterations.append(launched)

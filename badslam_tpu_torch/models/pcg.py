@@ -67,7 +67,7 @@ from badslam_tpu_torch.models.surfels import SurfelStore
 from badslam_tpu_torch.ops.segment import SegmentPlan, plan_segments
 from badslam_tpu_torch.parallel import spmd
 from badslam_tpu_torch.utils.timing import Timing
-from badslam_tpu_torch.utils.transfer import DonePoll
+from badslam_tpu_torch.utils.transfer import LoopEnd
 
 DIAG_EPSILON = 1e-8     # kDiagEpsilon (kernel_pcg.cu:44)
 N_DINTR = 5             # fx_inv, fy_inv, cx_inv, cy_inv, a
@@ -526,13 +526,15 @@ def pcg_solve(surfels: SurfelStore, kf: KeyframeStore,
               axis_name: Optional[str] = None,
               kf_axis: Optional[str] = None) -> PCGVector:
   """The full PCG solve. Returns the GN update delta, which
-  ``apply_pcg_delta`` adds. The loop ends on the host, so each inner
-  iteration reads one flag from the device; with ``transfer_free`` the flag
-  stays on the device and the delta holds once it is set
-  (utils/transfer.py). ``stats``, if given, receives the inner iterations
-  run (launched, with ``transfer_free``), the passes over the keyframes and
-  the keyframe terms computed; the same go to ``Timing`` (see the module's
-  docstring). ``axis_name`` and ``kf_axis`` as in
+  ``apply_pcg_delta`` adds. The delta holds once the done flag is set; the
+  loop ends on a read of that flag before each inner iteration or, with
+  ``transfer_free``, on a poll that never waits (``utils/transfer.LoopEnd``;
+  it may then launch an iteration or two past the flag, which change
+  nothing). The counts go to ``Timing`` (see the module's docstring);
+  ``stats``, if given, also receives them (the inner iterations, the
+  passes over the keyframes, the keyframe terms computed and whether they
+  were held) for a caller outside the port, the benchmark's check of the
+  joint system on the card. ``axis_name`` and ``kf_axis`` as in
   ``pcg_init``: every value that steers the loop is then the same on every
   shard."""
   common = (surfels, kf, depth_cam, color_cam, dp, gauge_index, use_depth,
@@ -551,21 +553,18 @@ def pcg_solve(surfels: SurfelStore, kf: KeyframeStore,
     pvec = g
     alpha_n = r.dot(g, **axes)
     threshold = 1e-10 * alpha_n + 1e-30
+  done = ~(alpha_n > threshold)
+  end = LoopEnd(surfels.device, transfer_free,
+                tuple(a for a in (axis_name, kf_axis) if a is not None)
+                or None)
   iterations = 0
-  if transfer_free:
-    mesh_axes = tuple(a for a in (axis_name, kf_axis) if a is not None)
-    poll = DonePoll(surfels.device, mesh_axes or None)
-    done = ~(alpha_n > threshold)
   with span("BA PCG inner loop", axis_name, kf_axis):
-    while iterations < max_inner_iterations and (
-        transfer_free or bool(alpha_n > threshold)):
+    while iterations < max_inner_iterations and not end.done(done):
       h = apply_hessian(pvec, *common, terms=terms, **axes)
       alpha_d = pvec.dot(h, **axes)
       alpha = alpha_n / torch.clamp(alpha_d, min=1e-30)
-      stepped = delta + pvec.scale(alpha)
-      delta = (PCGVector(*(torch.where(done, a, b)
-                           for a, b in zip(delta, stepped)))
-               if transfer_free else stepped)
+      delta = PCGVector(*(torch.where(done, a, b) for a, b in zip(
+          delta, delta + pvec.scale(alpha))))
       r = r - h.scale(alpha)
       g = M_inv.mul(r)
       beta_n = r.dot(g, **axes)
@@ -573,10 +572,7 @@ def pcg_solve(surfels: SurfelStore, kf: KeyframeStore,
       pvec = g + pvec.scale(beta)
       alpha_n = beta_n
       iterations += 1
-      if transfer_free:
-        done = done | ~(alpha_n > threshold)
-        if poll.done(done):
-          break
+      done = done | ~(alpha_n > threshold)
   if records(axis_name, kf_axis):
     Timing.count("BA PCG inner iterations", iterations)
     Timing.count("BA PCG keyframe passes", terms.passes)

@@ -41,7 +41,7 @@ from badslam_tpu_torch.models.surfels import SurfelStore
 from badslam_tpu_torch.ops import pose_h_b
 from badslam_tpu_torch.parallel import spmd
 from badslam_tpu_torch.utils.timing import Timing
-from badslam_tpu_torch.utils.transfer import DonePoll
+from badslam_tpu_torch.utils.transfer import LoopEnd
 
 _TRANSLATION_CONVERGENCE_THRESHOLD = 1e-6
 _ROTATION_SCALE = 10.0  # translation_threshold / rotation_threshold
@@ -256,20 +256,21 @@ def estimate_frame_poses_batched(
   pose problems are independent. As in the reference, they are the lanes of
   one shared loop: each step accumulates the H/b of every open lane, solves
   and updates every open lane, and freezes a lane after the step that
-  converged it. The loop ends when no lane is open, read once per step, or
-  after ``max_iterations`` steps; a lane's steps are those of
+  converged it. The loop ends when no lane is open, or after
+  ``max_iterations`` steps; a lane's steps are those of
   ``estimate_frame_pose`` with the same cap. On a CUDA device each step is
   two kernel launches (``ops/pose_h_b.py``), which keep no temporaries of
   size keyframes x surfels; for CPU tensors the kernels' plain versions
-  run, one keyframe at a time, over the lanes the host last read open.
+  run, one keyframe at a time, over every slot at every step, keeping the
+  open lanes' results.
 
   ``slots`` are the indices of ``optimize_mask`` as host ints, for a caller
   that has them (none means no step); otherwise the CPU path reads the mask
-  back once. ``transfer_free``: the flag is polled (``DonePoll``) instead
-  of read, and the lanes hold still once done, so the steps that run past
-  convergence change nothing; the CPU path then computes every slot at
-  every step and keeps the open lanes' results, and "BA pose lane steps"
-  is not recorded, since no count is read. ``axis``: each shard's H/b
+  back once. The all-done flag is read once per step or, with
+  ``transfer_free``, polled (``utils/transfer.LoopEnd``); the lanes hold
+  still once done, so the steps that run past convergence change nothing.
+  "BA pose lane steps" is read once after the loop, and not recorded with
+  ``transfer_free``, where no count is read. ``axis``: each shard's H/b
   are summed over the mesh axis before the step, which every shard makes
   alike; the counters are recorded by the axis' first shard.
 
@@ -280,11 +281,10 @@ def estimate_frame_poses_batched(
   cuda = dev.type == "cuda"
   k = global_T_frame_init.shape[0]
   T = global_T_frame_init.clone(memory_format=torch.contiguous_format)
-  steps = lane_steps = 0
+  steps = 0
   if not cuda and slots is None:
     slots = torch.nonzero(optimize_mask).flatten().tolist()
   if slots is None or len(slots):
-    lanes = slots
     done = ~optimize_mask.to(dev)
     out = (torch.zeros((k, 6, 6), dtype=torch.float32, device=dev),
            torch.zeros((k, 6), dtype=torch.float32, device=dev),
@@ -303,7 +303,7 @@ def estimate_frame_poses_batched(
           (pose_h_b.blocks(surfels.capacity, dev), k, pose_h_b.SUMS),
           dtype=torch.float32, device=dev)
       ticket = torch.zeros((), dtype=torch.int32, device=dev)
-    poll = DonePoll(dev, axis) if transfer_free else None
+    end = LoopEnd(dev, transfer_free, axis)
     for _ in range(max_iterations):
       if cuda:
         pose_h_b.accumulate(
@@ -313,28 +313,21 @@ def estimate_frame_poses_batched(
             ticket)
       else:
         accumulate_lanes_h_b_plain(
-            T, done, lanes, surfels, kf_depth, kf_normals, kf_intensity,
+            T, done, slots, surfels, kf_depth, kf_normals, kf_intensity,
             depth_cam, color_cam, dp, use_depth_residuals,
             use_descriptor_residuals, out)
       H, b, _ = out if axis is None else spmd.psum(out, axis)
       if cuda:
         pose_h_b.step(T, done, H, b, state, all_done)
       else:
-        step_lanes_plain(T, done, H, b, state, all_done, lanes)
+        step_lanes_plain(T, done, H, b, state, all_done, slots)
       steps += 1
-      if transfer_free:
-        if poll.done(all_done):
-          break
-        continue
-      still_open, lane_steps = state.tolist()
-      if still_open == 0:
+      if end.done(all_done):
         break
-      if not cuda:
-        lanes = torch.nonzero(~done).flatten().tolist()
     if axis is None or spmd.axis_index(axis) == 0:
       Timing.count("BA pose GN steps", steps)
-      if not transfer_free:
-        Timing.count("BA pose lane steps", lane_steps)
+      if end.reads:
+        Timing.count("BA pose lane steps", int(state[1]))
   diff = se3.inverse(global_T_frame_init) @ T
   moved = optimize_mask & ~is_scale1_converged(se3.log(diff))
   return T, moved

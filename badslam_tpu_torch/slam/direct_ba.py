@@ -205,8 +205,6 @@ class DirectBA:
     self.use_depth_residuals = config.use_geometric_residuals
     self.use_descriptor_residuals = config.use_photometric_residuals
     self.surfel_merge_dist_factor = config.surfel_merge_dist_factor
-    # Inner iterations of each PCG solve so far (one entry per solve).
-    self.pcg_inner_iterations: List[int] = []
 
   # --- state carried across ---
 
@@ -463,7 +461,6 @@ class DirectBA:
         setattr(c, name, (getattr(c._store(), field), cached_val))
     c.last_active_in_ba_iteration = self.last_active_in_ba_iteration.copy()
     c._kf_valid_host = self._kf_valid_host.copy()
-    c.pcg_inner_iterations = list(self.pcg_inner_iterations)
     c.timings_stream = None
     return c
 
@@ -593,12 +590,11 @@ class DirectBA:
     Returns the largest pose-update entry of a valid keyframe (0-d)."""
     def step(surfels, v):
       calib = v.calibration
-      stats = {}
       delta = pcg_mod.pcg_solve(
           surfels, v.kf, v.depth_cam, v.color_cam, calib, gauge,
           self.config.pcg_max_inner_iterations, self.use_depth_residuals,
           self.use_descriptor_residuals, opt_dintr, opt_cintr, slots=slots,
-          stats=stats, transfer_free=transfer_free, axis_name=self._axis)
+          transfer_free=transfer_free, axis_name=self._axis)
       surfels, kf = pcg_mod.apply_pcg_delta(surfels, v.kf, delta)
       new_calibration = pcg_mod.apply_pcg_delta_intrinsics(
           calib.depth_intr, v.color_intr, calib.a, calib.cfactor, delta,
@@ -611,11 +607,9 @@ class DirectBA:
             surfels, kf, v.depth_cam, calib, slots=slots)
       pose_update = torch.where(kf.valid[:, None], delta.poses.abs(),
                                 0.0).max()
-      return (surfels, kf.global_T_frame, new_calibration, pose_update,
-              stats["iterations"])
-    surfels, T, new_calibration, pose_update, iterations = self._on_shards(
-        step, (sharded_ba.surfel_specs(), P(), P(), P(), P()))
-    self.pcg_inner_iterations.append(iterations)
+      return surfels, kf.global_T_frame, new_calibration, pose_update
+    surfels, T, new_calibration, pose_update = self._on_shards(
+        step, (sharded_ba.surfel_specs(), P(), P(), P()))
     self._put(surfels)
     self.kf = self.kf._replace(global_T_frame=T)
     self._write_calibration(*new_calibration)

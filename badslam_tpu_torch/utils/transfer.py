@@ -1,4 +1,4 @@
-"""Host-device transfers that do not make the host wait for the device.
+"""Host-device transfers, and how a device loop ends.
 
 The pipelined front-end (``slam/pipelined.py``) must never synchronize the
 host with the card between its first and its last frame. Two kinds of
@@ -8,25 +8,30 @@ them:
   * ``to_device`` copies a host array to the device from page-locked memory
     without blocking (a plain ``torch.from_numpy(a).to(cuda)`` copies from
     pageable memory and waits for the stream);
-  * ``DonePoll`` ends a device loop whose stop condition is a device flag
-    (a Gauss-Newton loop's convergence): each iteration queues a copy of the
-    flag into page-locked memory behind an event, and the loop stops at the
-    first iteration at which an earlier copy is known to have landed and
-    says done. The host never waits: an event that has not completed yet is
-    asked again at the next iteration. The loop's state must hold still
-    once the flag is set (``torch.where(done, old, new)``), so the one or
-    two iterations that run past convergence change nothing, and the result
-    equals a loop that stops at once.
+  * ``LoopEnd`` ends a device loop whose stop condition is a device flag
+    (a Gauss-Newton or conjugate-gradient loop's convergence).
+
+Each such loop (odometry, the BA pose phase, the joint PCG) runs one body
+whose state holds still once the flag is set (``torch.where(done, old,
+new)``), and its ``transfer_free`` choice picks the ending here alone. The
+host ending reads the flag at once, the one blocking read an iteration
+makes, so the body runs only while the flag is clear and gives the plain
+update. The poll ending queues a copy of the flag into page-locked memory
+behind an event and stops at the first iteration at which an earlier copy
+is known to have landed and says done; an event that has not completed yet
+is asked again at the next iteration. The one or two iterations that run
+past convergence change nothing, so both endings give the same result.
 
 On the CPU there is nothing to wait for: ``to_device`` copies the array and
-``DonePoll`` reads the flag at once, in ``read_flag``, the one read of a
+both endings read the flag at once, in ``read_flag``, the one read of a
 tensor that the pipelined loop makes.
 
 Inside ``parallel/spmd.shard_map`` the members of a collective group hold
-the same flag but may see its copies land at different iterations; a poll
-given the group's ``axis`` ends the loop for all of them once one has seen
-the flag set (a host-side ``psum``), so every member makes the same
-collectives.
+the same flag (it comes from summed H/b or dot products), so each member
+reads the same value. Under the poll they may see its copies land at
+different iterations; an ending given the group's ``axis`` stops the loop
+for all of them once one has seen the flag set (a host-side ``psum``), so
+every member makes the same collectives.
 """
 
 from __future__ import annotations
@@ -51,23 +56,30 @@ def to_device(array, device: torch.device) -> torch.Tensor:
 
 
 def read_flag(flag: torch.Tensor) -> bool:
-  """The value of a 0-d bool tensor on the CPU."""
+  """The value of a 0-d bool tensor, on the host (from a GPU, the host
+  waits for it)."""
   return bool(flag)
 
 
-class DonePoll:
-  """Asks, without blocking, whether a device loop's done flag was set.
+class LoopEnd:
+  """How a device loop whose stop condition is a device flag ends.
 
-  ``done(flag)`` is called once per iteration with that iteration's flag;
-  it returns True once a copy of a set flag has been seen (by a member of
-  the mesh group along ``axis``, when one is given)."""
+  ``done(flag)`` is called once per iteration with that iteration's flag.
+  With ``transfer_free`` false it reads the flag (the host ending);
+  otherwise it polls copies of it without blocking and returns True once a
+  copy of a set flag has been seen, by any member of the mesh group along
+  ``axis`` when one is given (the poll ending). ``reads``: whether the host
+  may read the device, so that a loop may read its counts once it ends."""
 
-  def __init__(self, device: torch.device, axis=None):
+  def __init__(self, device: torch.device, transfer_free: bool, axis=None):
+    self.reads = not transfer_free
     self._cuda = device.type == "cuda"
     self._axis = axis
     self._pending: List[Tuple[torch.cuda.Event, torch.Tensor]] = []
 
   def done(self, flag: torch.Tensor) -> bool:
+    if self.reads:
+      return read_flag(flag)
     seen = self._seen(flag)
     if self._axis is not None:
       seen = spmd.psum(int(seen), self._axis) > 0

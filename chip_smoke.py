@@ -1435,6 +1435,7 @@ def check_self_calibration_recovery(device, width: int = 640,
   import torch
   from badslam_tpu_torch.models import pcg
   from badslam_tpu_torch.slam.direct_ba import DirectBA
+  from badslam_tpu_torch.utils.timing import Timing
 
   def synchronize():
     if torch.device(device).type == "cuda":
@@ -1488,17 +1489,19 @@ def check_self_calibration_recovery(device, width: int = 640,
   before = calibration_error(calib, true_intr)
   synchronize()
   t0 = time.perf_counter()
-  outer, _ = joint.bundle_adjustment(
-      optimize_depth_intrinsics=True, optimize_color_intrinsics=True,
-      do_surfel_updates=False, min_iterations=2, max_iterations=2,
-      active_keyframe_window_start=0,
-      active_keyframe_window_end=keyframes - 1)
-  synchronize()
+  with Timing.isolated() as joint_stats:
+    outer, _ = joint.bundle_adjustment(
+        optimize_depth_intrinsics=True, optimize_color_intrinsics=True,
+        do_surfel_updates=False, min_iterations=2, max_iterations=2,
+        active_keyframe_window_start=0,
+        active_keyframe_window_end=keyframes - 1)
+    synchronize()
   joint_ms = (time.perf_counter() - t0) * 1e3
   after = calibration_error(calib, true_intr)
   color_err = float((joint.color_intr - true_intr).abs().max())
+  inner = joint_stats["BA PCG inner iterations"].samples
   print(f"joint recovery by PCG: {outer} outer iterations, inner iterations "
-        f"per solve {joint.pcg_inner_iterations}, {joint_ms / outer!r} ms "
+        f"per solve {inner}, {joint_ms / outer!r} ms "
         f"per outer iteration; depth camera from {json.dumps(before)} to "
         f"{json.dumps(after)}; color intrinsics (started true) off by "
         f"{color_err!r} px")
@@ -1510,18 +1513,21 @@ def check_self_calibration_recovery(device, width: int = 640,
   if not after["intrinsics_px"] < before["intrinsics_px"]:
     fail(f"joint recovery by PCG: the depth camera moved away from the "
          f"truth: {before} -> {after}")
-  stats = {}
   args = (joint.surfels, joint.kf, joint.depth_camera(),
           joint.color_camera(), calib, 0)
   flags = dict(use_depth=True, use_desc=True, opt_dintr=True, opt_cintr=True)
-  delta = pcg.pcg_solve(*args, config.pcg_max_inner_iterations, **flags,
-                        stats=stats)
+  with Timing.isolated() as solve_stats:
+    delta = pcg.pcg_solve(*args, config.pcg_max_inner_iterations, **flags)
+  counts = {tag: solve_stats[tag].samples[0] for tag in (
+      "BA PCG inner iterations", "BA PCG keyframe passes",
+      "BA PCG terms recomputed")}
   residual, scale = pcg.debug_verify_result(delta, *args, **flags)
   residual, scale = float(residual), float(scale)
   print(f"joint recovery by PCG, debug_verify_result on one more solve "
-        f"({stats['iterations']} inner iterations, {stats['passes']} passes, "
-        f"terms held {stats['terms_held']}): largest residual of the normal "
-        f"equations {residual!r} at scale {scale!r}")
+        f"({counts['BA PCG inner iterations']} inner iterations, "
+        f"{counts['BA PCG keyframe passes']} passes, terms held "
+        f"{counts['BA PCG terms recomputed'] == 0}): largest residual of the "
+        f"normal equations {residual!r} at scale {scale!r}")
   if not (np.isfinite(residual) and np.isfinite(scale)):
     fail("joint recovery by PCG: debug_verify_result is not finite")
   if torch.device(device).type == "cuda":
@@ -1581,7 +1587,7 @@ def run_self_calibration_path(workdir: str, data: str, use_pcg: bool) -> dict:
   ba = slam.direct_ba
   if use_pcg:
     pcg_s = stats["BA PCG"]
-    inner = ba.pcg_inner_iterations
+    inner = stats["BA PCG inner iterations"].samples
     print(f"{label}: {pcg_s.count} outer iterations, "
           f"{pcg_s.total / pcg_s.count * 1e3!r} ms per outer iteration "
           f"(normal re-estimation included), inner iterations per solve: "

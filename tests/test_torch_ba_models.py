@@ -325,9 +325,9 @@ def test_shared_loop_freezes_lanes_like_estimate_frame_pose(
   for k in range(3):
     assert torch.equal(got[k], want[k]), k
   assert torch.equal(got[3], kf.global_T_frame[3])
-  # Transfer-free, the host cannot tell which lanes are open: every lane is
-  # computed at every step, and a done lane's result dropped.
-  assert len(calls) == (3 * max(steps) if transfer_free else sum(steps))
+  # Under either ending every lane is computed at every step, and a done
+  # lane's result dropped: the host never reads which lanes are open.
+  assert len(calls) == 3 * max(steps)
   assert stats["BA pose GN steps"].samples == [max(steps)]
   assert stats["BA pose GN steps"].counter
   if transfer_free:

@@ -260,15 +260,17 @@ def test_two_ba_iterations_with_intrinsics_or_pcg_match_jax(
                   active_keyframe_window_end=jba.keyframe_count - 1)
     before = pba.calibration.depth_intr.clone()
     depth_cam = pba.depth_camera()   # views: they must follow the steps
-    Timing.reset()
-    assert jba.bundle_adjustment(**kwargs) == pba.bundle_adjustment(**kwargs)
-    spans = Timing.stats()
+    with Timing.isolated() as spans:
+      assert (jba.bundle_adjustment(**kwargs)
+              == pba.bundle_adjustment(**kwargs))
     assert ("BA PCG" in spans) == use_pcg
     assert ("BA pose optimization" in spans) == (not use_pcg)
     assert ("BA intrinsics optimization" in spans) == (
         intrinsics and not use_pcg)
-    assert len(pba.pcg_inner_iterations) == (2 if use_pcg else 0)
-    assert all(1 < n <= inner_cap for n in pba.pcg_inner_iterations)
+    counted = spans.get("BA PCG inner iterations")
+    inner = counted.samples if counted else []
+    assert len(inner) == (2 if use_pcg else 0)
+    assert all(1 < n <= inner_cap for n in inner)
 
     assert_stores(jba.kf, pba.kf, dict(global_T_frame=tol["poses"]))
     assert_stores(jba.surfels, pba.surfels,

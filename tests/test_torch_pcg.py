@@ -43,6 +43,7 @@ from badslam_tpu.geometry import se3 as jse3
 from badslam_tpu.models import pcg as jpcg
 from badslam_tpu_torch.geometry import se3
 from badslam_tpu_torch.models import pcg
+from badslam_tpu_torch.utils.timing import Timing
 from tests import test_pcg as jax_pcg_tests
 from tests.test_torch_ba_fixtures import (jax_cameras_and_params,
                                           port_from_jax)
@@ -181,17 +182,42 @@ def test_gauge_keyframe_outside_the_pass_keeps_its_rows(pair):
   assert float(h.poses[0].abs().max()) == 0.0
 
 
-def test_pcg_solve_matches_jax(geometric_pair, monkeypatch):
+def _solve_counted(monkeypatch, pba, flags, transfer_free):
+  """pcg_solve's delta, its ``Timing`` counters (one sample each) and the
+  keyframe terms it computed (read from the ``KeyframeTerms`` it made)."""
+  made = []
+  real = pcg.KeyframeTerms
+
+  def making(*args, **kwargs):
+    made.append(real(*args, **kwargs))
+    return made[-1]
+
+  monkeypatch.setattr(pcg, "KeyframeTerms", making)
+  with Timing.isolated() as stats:
+    delta = pcg.pcg_solve(*_port_args(pba), 0, **flags,
+                          transfer_free=transfer_free)
+  monkeypatch.setattr(pcg, "KeyframeTerms", real)
+  counts = {tag: s.samples for tag, s in stats.items() if s.counter}
+  (terms,) = made
+  return delta, {tag: n for tag, (n,) in counts.items()}, terms.computed
+
+
+@pytest.mark.parametrize("transfer_free", [False, True],
+                         ids=["host_read", "transfer_free"])
+def test_pcg_solve_matches_jax(geometric_pair, monkeypatch, transfer_free):
+  """The solve against JAX's, under either ending of its loop; the poll
+  ending gives the host ending's delta bit for bit."""
   jba, pba = geometric_pair
   depth_cam, color_cam, dp = jax_cameras_and_params(jba)
   flags = dict(max_inner_iterations=30, use_depth=True, use_desc=False)
   want = jax.jit(functools.partial(jpcg.pcg_solve, **flags))(
       jba.surfels, jba.kf, depth_cam, color_cam, dp, jnp.asarray(0))
-  stats = {}
-  got = pcg.pcg_solve(*_port_args(pba), 0, **flags, stats=stats)
-  assert 1 < stats["iterations"] < 30   # CG converged, the cap did not end it
-  assert stats["terms_held"] and stats["terms_computed"] == 2
-  assert stats["passes"] == stats["iterations"] + 1
+  got, counts, computed = _solve_counted(monkeypatch, pba, flags,
+                                         transfer_free)
+  iterations = counts["BA PCG inner iterations"]
+  assert 1 < iterations < 30   # CG converged, the cap did not end it
+  assert counts["BA PCG terms recomputed"] == 0 and computed == 2
+  assert counts["BA PCG keyframe passes"] == iterations + 1
   assert float(np.abs(np.asarray(want.poses)).max()) > 1e-3
   _assert_blocks(got._replace(spos=got.spos * 0), want._replace(
       spos=want.spos * 0), 2e-3, "delta")
@@ -204,13 +230,19 @@ def test_pcg_solve_matches_jax(geometric_pair, monkeypatch):
   err, scale = pcg.debug_verify_result(got, *_port_args(pba), 0,
                                        use_depth=True, use_desc=False)
   assert float(err) < 1e-2 * float(scale), (float(err), float(scale))
+  if transfer_free:
+    host = pcg.pcg_solve(*_port_args(pba), 0, **flags)
+    for block in BLOCKS:
+      assert torch.equal(getattr(got, block), getattr(host, block)), block
 
   # Where the terms do not fit they are computed again in every pass: the
   # same bits.
   monkeypatch.setattr(pcg, "CPU_TERM_BUDGET_BYTES", 0)
-  again = pcg.pcg_solve(*_port_args(pba), 0, **flags, stats=stats)
-  assert not stats["terms_held"]
-  assert stats["terms_computed"] == 2 * stats["passes"]
+  again, counts, computed = _solve_counted(monkeypatch, pba, flags,
+                                           transfer_free)
+  passes = counts["BA PCG keyframe passes"]
+  assert counts["BA PCG terms recomputed"] == passes
+  assert computed == 2 * passes
   for a, b in zip(again, got):
     assert torch.equal(a, b)
 

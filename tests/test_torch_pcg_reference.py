@@ -125,10 +125,10 @@ def test_apply_hessian_matches_reference(state, seed):
 
 def test_pcg_solve_matches_reference(state):
   ba, slots, system = state
-  stats = {}
-  delta = pcg.pcg_solve(*port_args(ba), 30, slots=slots, stats=stats)
+  with Timing.isolated() as stats:
+    delta = pcg.pcg_solve(*port_args(ba), 30, slots=slots)
   want, iterations = system.solve(30)
-  assert abs(stats["iterations"] - iterations) <= 3
+  assert abs(stats["BA PCG inner iterations"].samples[0] - iterations) <= 3
   for block in BLOCKS:
     assert share(getattr(delta, block), getattr(want, block)) < 1e-3, block
 
@@ -157,14 +157,29 @@ def test_dropped_descriptor_weights_are_caught(state, monkeypatch):
 
 
 def _recorded(ba: DirectBA, iterations: int = 2):
-  Timing.reset()
-  done, _ = ba.bundle_adjustment(max_iterations=iterations,
-                                 min_iterations=iterations)
-  return done, {tag: list(s.samples) for tag, s in Timing.stats().items()}
+  with Timing.isolated() as stats:
+    done, _ = ba.bundle_adjustment(max_iterations=iterations,
+                                   min_iterations=iterations)
+  return done, {tag: list(s.samples) for tag, s in stats.items()}
 
 
-def test_spans_and_counters_record_on_the_joint_path():
+def _count_products(monkeypatch):
+  """A list that gains one entry per Hessian-vector product, the work of
+  one inner iteration."""
+  calls = []
+  real = pcg.apply_hessian
+
+  def counted(*args, **kwargs):
+    calls.append(1)
+    return real(*args, **kwargs)
+
+  monkeypatch.setattr(pcg, "apply_hessian", counted)
+  return calls
+
+
+def test_spans_and_counters_record_on_the_joint_path(monkeypatch):
   ba = build_map(use_pcg=True)
+  products = _count_products(monkeypatch)
   done, stats = _recorded(ba)
   assert done == 2
   for tag in PCG_SPANS:
@@ -172,7 +187,7 @@ def test_spans_and_counters_record_on_the_joint_path():
     assert len(stats[tag + " [cpu]"]) == done, tag
   for tag in PCG_COUNTERS:
     assert len(stats[tag]) == done, tag
-  assert stats["BA PCG inner iterations"] == ba.pcg_inner_iterations
+  assert sum(stats["BA PCG inner iterations"]) == len(products)
   # The terms are held: one pass computes them, each inner iteration reads
   # them once more.
   assert stats["BA PCG terms recomputed"] == [0, 0]
@@ -201,7 +216,7 @@ def test_participating_keyframes_count_under_both_solvers(use_pcg):
   assert ("BA geometry optimization" in stats) == (not use_pcg)
 
 
-def test_mesh_records_one_sample_per_solve():
+def test_mesh_records_one_sample_per_solve(monkeypatch):
   """Over a 2-shard CPU mesh every position runs the same loop; only the
   first records the joint step's spans and counters."""
   from badslam_tpu_torch.parallel import sharded_ba
@@ -212,8 +227,11 @@ def test_mesh_records_one_sample_per_solve():
   ba = DirectBA.from_numpy(one.config, cam, cam, surfels, kf,
                            one.calibration.clone(), host, "cpu",
                            mesh=Mesh(["cpu"] * 2, (sharded_ba.SURFEL_AXIS,)))
+  products = _count_products(monkeypatch)
   done, stats = _recorded(ba, iterations=1)
   assert done == 1
   for tag in PCG_SPANS + PCG_COUNTERS + ("BA participating keyframes",):
     assert len(stats[tag]) == 1, tag
-  assert stats["BA PCG inner iterations"] == ba.pcg_inner_iterations
+  # Each position made every product; one of them counted the iterations.
+  assert len(products) % 2 == 0
+  assert stats["BA PCG inner iterations"] == [len(products) // 2]
